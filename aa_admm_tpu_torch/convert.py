@@ -1,0 +1,98 @@
+"""Carry state across from the JAX package, given as NumPy arrays.
+
+With these a test can run one ``solve_alm_chunk`` in both packages from the
+same mid-solve state. Inputs are plain NumPy arrays (for example
+``jax.device_get`` of the JAX objects); nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops import closest_point as cp
+from .ops import constraints
+from .ops._batchutil import _host_mirror, torch_dtype
+from .solver import anderson
+from .solver.multigrid import TwoLevelPrecond
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _tensor(a, device, dtype=None):
+    a = np.array(a)             # a writable copy (device_get arrays are not)
+    t = torch.from_numpy(a)
+    if a.dtype.kind in "iu":
+        t = t.to(torch.int64)
+    return t.to(device=device, dtype=dtype)
+
+
+def batch_from_numpy(kind, fields: dict, device="cpu"):
+    """A port constraint batch from a JAX batch's fields. `kind` is the class
+    name ("AngleBatch", "EdgeLengthBatch", "ClosenessBatch",
+    "RefSurfaceBatch") or the port class; `fields` maps field names to NumPy
+    arrays (or Python ints for the static fields) and may hold "_host", the
+    batch's host-mirror dict. Integer arrays become int64; None fields and
+    fields the port does not have (the gather-form adjoint tables) are
+    dropped."""
+    cls = getattr(constraints, kind) if isinstance(kind, str) else kind
+    names = {f for f in cls.__dataclass_fields__}
+    kw = {}
+    for name, v in fields.items():
+        if name not in names or v is None:
+            continue
+        kw[name] = v if isinstance(v, (int, float)) else _tensor(v, device)
+    out = cls(**kw)
+    host = fields.get("_host")
+    if host is not None:
+        _host_mirror(out, **{k: (np.asarray(v, np.int64) if k == "idx" else v)
+                             for k, v in host.items()})
+    return out
+
+
+def two_level_from_numpy(agg, Ac_inv, inv_diag, device="cpu",
+                         dtype=None) -> TwoLevelPrecond:
+    """The port's two-level preconditioner from its three arrays."""
+    dt = torch_dtype(dtype) if dtype is not None else None
+    return TwoLevelPrecond(agg=_tensor(agg, device),
+                           Ac_inv=_tensor(Ac_inv, device, dt),
+                           inv_diag=_tensor(inv_diag, device, dt))
+
+
+def _cp_cache(c, device):
+    if c is None:
+        return None
+    if hasattr(c, "gidx") or (isinstance(c, dict) and "gidx" in c):
+        return cp.CPCacheGroup(gidx=_tensor(_get(c, "gidx"), device),
+                               p0=_tensor(_get(c, "p0"), device),
+                               slack=_tensor(_get(c, "slack"), device))
+    candT = _get(c, "candT") if not isinstance(c, dict) else c.get("candT")
+    return cp.CPCache(idx=_tensor(_get(c, "idx"), device),
+                      p0=_tensor(_get(c, "p0"), device),
+                      slack=_tensor(_get(c, "slack"), device),
+                      candT=None if candT is None else _tensor(candT, device))
+
+
+def alm_state_from_numpy(state: dict, device="cpu") -> dict:
+    """The port's ALM loop state from the JAX loop-state dict
+    (aa_admm_tpu/solver/geometry.py _alm_init_state): x, u, dx, du, the cp
+    caches, prev, reset, the AA state and the counters. The JAX counters
+    ``trial``, ``limit``, ``max_trials`` and ``cgit`` become host ints."""
+    def t(a):
+        return _tensor(a, device)
+
+    aa = _get(state, "aa")
+    return dict(
+        x=t(state["x"]), u=tuple(t(a) for a in state["u"]),
+        dx=t(state["dx"]), du=tuple(t(a) for a in state["du"]),
+        cp=tuple(_cp_cache(c, device) for c in state["cp"]),
+        prev=t(state["prev"]), reset=t(state["reset"]),
+        aa=anderson.AAState(**{name: t(_get(aa, name)) for name in
+                               ("current_u", "dF", "dG", "dF_scale", "M",
+                                "iter", "col_idx")}),
+        it=t(state["it"]), trial=int(state["trial"]), fv=t(state["fv"]),
+        rj=t(state["rj"]), rejects=t(state["rejects"]),
+        limit=int(state["limit"]), max_trials=int(state["max_trials"]),
+        cgit=int(state["cgit"]), reads=0, cp_refreshes=0)

@@ -1,0 +1,398 @@
+"""Geometry constraint batches (counterpart of aa_admm_tpu/ops/constraints.py)
+— the struct-of-arrays replacement for the reference's ``Constraint<N>``
+virtual hierarchy (Geometry/Constraint.h:48-414).
+
+Each batch is a frozen dataclass of tensors with
+  * ``transform(x)`` — gather + invariance transform to a block (C, K, 3);
+  * ``scatter(t, n)`` — D^T applied to a block (``index_add_``; on CUDA the
+    summation order varies from run to run);
+  * ``project(p)`` — the constraint projection.
+
+Weights: each constraint carries w = sqrt(weight) (Constraint.h:62-68).
+Batches are created on the CPU at f64 with f64 NumPy host mirrors; the
+solver's setup moves them to its dtype and device (``cast_floats``). Index
+tensors are int64.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ._batchutil import (  # noqa: F401 (re-export)
+    _host_mirror, cast_floats, hostarr, torch_dtype)
+from .closest_point import (build_tri_groups, closest_point_cached,
+                            closest_point_cached_group, closest_point_on_mesh,
+                            closest_point_on_mesh_2stage, cp_cache_group_init,
+                            cp_cache_init)
+
+# Above this triangle count, RefSurfaceBatch uses the coarse-to-fine
+# closest-point query (and an in-loop candidate cache) instead of brute force.
+_CP_2STAGE_THRESHOLD = 4096
+# Above this triangle count, the candidate cache is subgroup-granular.
+_CP_GROUP_THRESHOLD = 20000
+# The flat cache also keeps its candidates' coordinates in kernel B1's layout
+# while Q * K stays within this bound.
+_CANDT_MAX = 1_000_000
+
+
+def _t(a, dtype=None):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
+
+
+def _scatter_rows(contrib, idx, n_verts):
+    """segment_sum of (R, 3) rows into n_verts bins."""
+    out = torch.zeros((n_verts, contrib.shape[-1]), dtype=contrib.dtype,
+                      device=contrib.device)
+    return out.index_add_(0, idx, contrib)
+
+
+@dataclasses.dataclass(frozen=True)
+class AngleBatch:
+    """3-point angle clamp to [min,max] radians, SUBTRACT_FIRST transform
+    (AngleConstraint, Constraint.h:220-296). Block shape (C, 2, 3)."""
+
+    idx: torch.Tensor        # (C, 3) tip, side1, side2
+    w: torch.Tensor          # (C,)
+    min_angle: torch.Tensor  # (C,)
+    max_angle: torch.Tensor  # (C,)
+
+    @classmethod
+    def create(cls, triples, weight, min_radian, max_radian, dtype=np.float64):
+        C = len(triples)
+        mn = np.maximum(0.0, np.broadcast_to(min_radian, (C,)).astype(dtype))
+        mx = np.minimum(np.pi, np.broadcast_to(max_radian, (C,)).astype(dtype))
+        idx = np.asarray(triples, np.int64).reshape(C, 3)
+        w = np.full(C, np.sqrt(weight), dtype)
+        out = cls(idx=_t(idx), w=_t(w), min_angle=_t(mn), max_angle=_t(mx))
+        return _host_mirror(out, idx=idx, w=w)
+
+    @property
+    def block_shape(self):
+        return (self.idx.shape[0], 2, 3)
+
+    def transform(self, x):
+        tip = x[self.idx[:, 0]]
+        return torch.stack([x[self.idx[:, 1]] - tip, x[self.idx[:, 2]] - tip],
+                           dim=1)
+
+    def transform_host(self, x):
+        idx = hostarr(self, 'idx')
+        x = np.asarray(x, np.float64)
+        tip = x[idx[:, 0]]
+        return np.stack([x[idx[:, 1]] - tip, x[idx[:, 2]] - tip], axis=1)
+
+    def scatter(self, t, n_verts):
+        contrib = torch.cat([-(t[:, 0] + t[:, 1])[:, None, :], t], dim=1)
+        return _scatter_rows(contrib.reshape(-1, 3), self.idx.reshape(-1),
+                             n_verts)
+
+    def project(self, p):
+        """Closed-form coplanar rotation projection (Constraint.h:243-291)."""
+        v1, v2 = p[:, 0], p[:, 1]
+        eps = 1e-14
+        v1_sq = (v1 * v1).sum(-1)
+        v2_sq = (v2 * v2).sum(-1)
+        v1_n = torch.sqrt(v1_sq)
+        v2_n = torch.sqrt(v2_sq)
+        u1 = v1 / torch.clamp_min(v1_n, 1e-300)[:, None]
+        u2 = v2 / torch.clamp_min(v2_n, 1e-300)[:, None]
+        cos_g = torch.clamp((u1 * u2).sum(-1), -1.0, 1.0)
+
+        min_cos = torch.clamp(torch.cos(self.min_angle), -1.0, 1.0)
+        max_cos = torch.clamp(torch.cos(self.max_angle), -1.0, 1.0)
+        needs = ((1.0 - torch.abs(cos_g) > eps)
+                 & ((cos_g > min_cos) | (cos_g < max_cos)))
+
+        gamma = torch.arccos(cos_g)
+        too_small = cos_g > min_cos  # angle below range -> open it up
+        eta = torch.where(too_small, self.min_angle - gamma,
+                          gamma - self.max_angle)
+        eta = torch.clamp_min(eta, 0.0)
+        theta = 0.5 * torch.atan2(v2_sq * torch.sin(2 * eta),
+                                  v1_sq + v2_sq * torch.cos(2 * eta))
+        theta = torch.minimum(torch.clamp_min(theta, 0.0), eta)
+        phi = eta - theta
+
+        u3 = u2 - u1 * cos_g[:, None]
+        u3 = u3 / torch.clamp_min(torch.linalg.vector_norm(
+            u3, dim=-1, keepdim=True), 1e-300)
+        u4 = u1 - u2 * cos_g[:, None]
+        u4 = u4 / torch.clamp_min(torch.linalg.vector_norm(
+            u4, dim=-1, keepdim=True), 1e-300)
+        sgn = torch.where(too_small, -1.0, 1.0).to(p.dtype)[:, None]
+        u3 = u3 * sgn
+        u4 = u4 * sgn
+
+        p1 = ((u1 * torch.cos(theta)[:, None] + u3 * torch.sin(theta)[:, None])
+              * (v1_n * torch.cos(theta))[:, None])
+        p2 = ((u2 * torch.cos(phi)[:, None] + u4 * torch.sin(phi)[:, None])
+              * (v2_n * torch.cos(phi))[:, None])
+        proj = torch.stack([p1, p2], dim=1)
+        return torch.where(needs[:, None, None], proj, p)
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeLengthBatch:
+    """Edge vector projected to target length, SUBTRACT_FIRST
+    (EdgeLengthConstraint, Constraint.h:194-218). Block (C, 1, 3)."""
+
+    idx: torch.Tensor      # (C, 2)
+    w: torch.Tensor        # (C,)
+    target: torch.Tensor   # (C,)
+
+    @classmethod
+    def create(cls, pairs, weight, target_length, dtype=np.float64):
+        C = len(pairs)
+        idx = np.asarray(pairs, np.int64).reshape(C, 2)
+        w = np.full(C, np.sqrt(weight), dtype)
+        out = cls(idx=_t(idx), w=_t(w), target=_t(
+            np.broadcast_to(target_length, (C,)).astype(dtype)))
+        return _host_mirror(out, idx=idx, w=w)
+
+    @property
+    def block_shape(self):
+        return (self.idx.shape[0], 1, 3)
+
+    def transform(self, x):
+        return (x[self.idx[:, 1]] - x[self.idx[:, 0]])[:, None, :]
+
+    def transform_host(self, x):
+        idx = hostarr(self, 'idx')
+        x = np.asarray(x, np.float64)
+        return (x[idx[:, 1]] - x[idx[:, 0]])[:, None, :]
+
+    def scatter(self, t, n_verts):
+        contrib = torch.cat([-t, t], dim=1)  # (C, 2, 3)
+        return _scatter_rows(contrib.reshape(-1, 3), self.idx.reshape(-1),
+                             n_verts)
+
+    def project(self, p):
+        e = p[:, 0]
+        n = torch.clamp_min(torch.linalg.vector_norm(e, dim=-1, keepdim=True),
+                            1e-300)
+        return (e / n * self.target[:, None])[:, None, :]
+
+
+@dataclasses.dataclass(frozen=True)
+class ClosenessBatch:
+    """Pin a vertex toward a target, IDENTITY transform (ClosenessConstraint,
+    Constraint.h:299-326, implemented correctly as in the JAX package)."""
+
+    idx: torch.Tensor     # (C,)
+    w: torch.Tensor       # (C,)
+    target: torch.Tensor  # (C, 3)
+
+    @classmethod
+    def create(cls, idx, weight, targets, dtype=np.float64):
+        C = len(idx)
+        idx_h = np.asarray(idx, np.int64).reshape(C)
+        w = np.full(C, np.sqrt(weight), dtype)
+        out = cls(idx=_t(idx_h), w=_t(w),
+                  target=_t(np.asarray(targets, dtype).reshape(C, 3)))
+        return _host_mirror(out, idx=idx_h, w=w)
+
+    @property
+    def block_shape(self):
+        return (self.idx.shape[0], 1, 3)
+
+    def transform(self, x):
+        return x[self.idx][:, None, :]
+
+    def transform_host(self, x):
+        return np.asarray(x, np.float64)[hostarr(self, 'idx')][:, None, :]
+
+    def scatter(self, t, n_verts):
+        return _scatter_rows(t[:, 0], self.idx, n_verts)
+
+    def project(self, p):
+        return self.target[:, None, :].expand(p.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class RefSurfaceBatch:
+    """Closest-point projection of vertices onto a fixed reference trimesh
+    (PointToRefSurfaceConstraint, Constraint.h:328-394). Block (C, 1, 3)."""
+
+    idx: torch.Tensor        # (C,)
+    w: torch.Tensor          # (C,)
+    tri_verts: torch.Tensor  # (T, 3, 3) reference surface triangles
+    # Morton-grouped copies for the subgroup cache (build_tri_groups; None
+    # for meshes at or below _CP_GROUP_THRESHOLD triangles).
+    grp_tris: Optional[torch.Tensor] = None     # (G, S, 3, 3)
+    grp_cent: Optional[torch.Tensor] = None     # (G, S, 3)
+    grp_rad: Optional[torch.Tensor] = None      # (G, S)
+    grp_gcenter: Optional[torch.Tensor] = None  # (G, 3)
+    grp_gradius: Optional[torch.Tensor] = None  # (G,)
+    tile: int = 2048
+    cp_groups: int = 6          # NG candidate subgroups per query
+    cp_sub: int = 16            # triangles per subgroup
+
+    @classmethod
+    def create(cls, idx, weight, ref_verts, ref_faces, dtype=np.float64,
+               tile: int = 2048, group_size: int = 64, sub_size: int = 16,
+               cp_groups: int = 6):
+        C = len(idx)
+        rv = np.asarray(ref_verts, dtype)
+        rf = np.asarray(ref_faces, np.int64)
+        idx_h = np.asarray(idx, np.int64).reshape(C)
+        w = np.full(C, np.sqrt(weight), dtype)
+        grp = {}
+        if len(rf) > _CP_GROUP_THRESHOLD:
+            tp, cent, rad, gc, gr = build_tri_groups(rv[rf],
+                                                     group_size=group_size)
+            G, S = len(gc), group_size
+            grp = dict(grp_tris=_t(tp.reshape(G, S, 3, 3), dtype),
+                       grp_cent=_t(cent.reshape(G, S, 3), dtype),
+                       grp_rad=_t(rad.reshape(G, S), dtype),
+                       grp_gcenter=_t(gc, dtype),
+                       grp_gradius=_t(gr, dtype),
+                       cp_groups=cp_groups, cp_sub=sub_size)
+        out = cls(idx=_t(idx_h), w=_t(w), tri_verts=_t(rv[rf]), tile=tile,
+                  **grp)
+        return _host_mirror(out, idx=idx_h, w=w)
+
+    @property
+    def block_shape(self):
+        return (self.idx.shape[0], 1, 3)
+
+    def transform(self, x):
+        return x[self.idx][:, None, :]
+
+    def transform_host(self, x):
+        return np.asarray(x, np.float64)[hostarr(self, 'idx')][:, None, :]
+
+    def scatter(self, t, n_verts):
+        return _scatter_rows(t[:, 0], self.idx, n_verts)
+
+    def project(self, p):
+        if self.tri_verts.shape[0] > _CP_2STAGE_THRESHOLD:
+            q = closest_point_on_mesh_2stage(p[:, 0], self.tri_verts)
+        else:
+            q = closest_point_on_mesh(p[:, 0], self.tri_verts, tile=self.tile)
+        return q[:, None, :]
+
+    # -- iterative-query candidate cache (solver loop fast path) --
+
+    def cp_cache_init(self, dtype):
+        """Candidate cache for in-loop projections, or None when the mesh is
+        small enough for the one-shot brute-force sweep. Subgroup-granular
+        with host-built groups; otherwise flat, with the candidate
+        coordinates cached in kernel B1's layout while Q * K <= 1M."""
+        T = int(self.tri_verts.shape[0])
+        dev = self.idx.device
+        if T <= _CP_2STAGE_THRESHOLD:
+            return None
+        if self.grp_tris is not None:
+            return cp_cache_group_init(int(self.idx.shape[0]),
+                                       self.cp_groups, dtype, dev)
+        Q, k = int(self.idx.shape[0]), min(48, T)
+        return cp_cache_init(Q, k, dtype, dev, with_candT=Q * k <= _CANDT_MAX)
+
+    def project_cached(self, p, cache):
+        """project() through the movement-bounded candidate cache — exact,
+        self-refreshing. Returns (proj, cache, refreshed); deciding whether
+        to refresh is one host read."""
+        if self.grp_tris is not None:
+            q, cache, refreshed = closest_point_cached_group(
+                p[:, 0], self.grp_tris, self.grp_cent, self.grp_rad,
+                self.grp_gcenter, self.grp_gradius, cache,
+                sub_size=self.cp_sub)
+        else:
+            q, cache, refreshed = closest_point_cached(p[:, 0],
+                                                       self.tri_verts, cache)
+        return q[:, None, :], cache, refreshed
+
+
+def _local_stiffness(b, scale_w: bool):
+    """(idx (C, k), K (C, k, k)) of one batch's D^T W^2 D contribution, or
+    (idx (C,), w2 (C,)) for identity-transform batches."""
+    w2 = (hostarr(b, 'w') ** 2) if scale_w else np.ones(len(hostarr(b, 'idx')))
+    idx = hostarr(b, 'idx')
+    if isinstance(b, AngleBatch):
+        G = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
+        return idx, np.einsum("c,ir,jr->cij", w2, G, G)
+    if isinstance(b, EdgeLengthBatch):
+        G = np.array([[-1.0], [1.0]])
+        return idx, np.einsum("c,ir,jr->cij", w2, G, G)
+    if isinstance(b, (ClosenessBatch, RefSurfaceBatch)):
+        return idx, np.asarray(w2, np.float64)
+    raise TypeError(f"unknown constraint batch type {type(b).__name__}")
+
+
+def assemble_geometry_node_matrix_sparse(n_verts: int, hard, soft, rho: float,
+                                         reg_rows=None):
+    """Sparse (scipy CSR) per-coordinate global matrix
+    ``rho D_h^T D_h + D_s^T W_s^2 D_s + L^T L`` (the ELL/CG path)."""
+    import scipy.sparse as sp
+
+    rows = [np.zeros(0, np.int64)]
+    cols = [np.zeros(0, np.int64)]
+    vals = [np.zeros(0, np.float64)]
+
+    def emit(idx, K):
+        C, k = idx.shape
+        rows.append(np.repeat(idx[:, :, None], k, axis=2).ravel())
+        cols.append(np.repeat(idx[:, None, :], k, axis=1).ravel())
+        vals.append(K.ravel())
+
+    def add_batch(b, scale_w, scale):
+        idx, K = _local_stiffness(b, scale_w)
+        if idx.ndim == 1:
+            rows.append(idx)
+            cols.append(idx)
+            vals.append(K * scale)
+        else:
+            emit(idx, K * scale)
+
+    for b in hard:
+        add_batch(b, scale_w=False, scale=rho)
+    for b in soft:
+        add_batch(b, scale_w=True, scale=1.0)
+    if reg_rows is not None:
+        idx, coef, mask = reg_rows
+        cm = coef * mask
+        emit(idx, np.einsum("ri,rj->rij", cm, cm))
+    A = sp.coo_matrix(
+        (np.concatenate(vals),
+         (np.concatenate(rows), np.concatenate(cols))),
+        shape=(n_verts, n_verts)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
+def assemble_geometry_node_matrix(n_verts: int, hard, soft, rho: float,
+                                  reg_rows=None, vertex_map=None) -> np.ndarray:
+    """Host-side dense per-coordinate global matrix
+    ``rho D_h^T D_h + D_s^T W_s^2 D_s + L^T L``
+    (ALMGeometrySolver::setup_ADMM, ALMGeometrySolver.h:96-141). With
+    ``vertex_map`` (n_fine,) -> [0, n_verts) it assembles the Galerkin coarse
+    operator P^T A P of the piecewise-constant prolongation instead."""
+    def remap(idx):
+        return idx if vertex_map is None else vertex_map[idx]
+
+    def add_batch(A, b, scale_w):
+        idx, K = _local_stiffness(b, scale_w)
+        idx = remap(idx)
+        if idx.ndim == 1:
+            np.add.at(A, (idx, idx), K)
+        else:
+            np.add.at(A, (idx[:, :, None], idx[:, None, :]), K)
+
+    A = np.zeros((n_verts, n_verts))
+    for b in hard:
+        add_batch(A, b, scale_w=False)
+    A *= rho
+    for b in soft:
+        add_batch(A, b, scale_w=True)
+    if reg_rows is not None:
+        idx, coef, mask = reg_rows
+        idx = remap(idx)
+        cm = coef * mask
+        K = np.einsum("ri,rj->rij", cm, cm)
+        np.add.at(A, (idx[:, :, None], idx[:, None, :]), K)
+    return A
+

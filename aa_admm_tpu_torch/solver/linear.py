@@ -1,0 +1,116 @@
+"""Global-step linear solvers (counterpart of aa_admm_tpu/solver/linear.py).
+
+* ``DenseInverseSolver`` — the per-coordinate system matrix is
+  Cholesky-inverted once on the host in f64; each solve is one matmul
+  ``A^-1 @ rhs`` over all coordinate columns.
+* ``pcg`` — preconditioned CG on (n, c) blocks with per-column alpha/beta
+  and frozen converged columns, in plain torch.
+* ``pcg_fused`` — the same iteration with its vector half in kernels B2 and
+  B3 (``ops.cuda_kernels.cg_update1/2``; their twins on CPU tensors). The
+  counterpart of ``pcg_banded`` without the TPU band layout: vectors stay
+  (n, c), x/r/p are updated in place.
+
+The loop condition is read on the host once per iteration; both CG
+functions return ``(x, iterations, host_reads)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..ops import cuda_kernels as ck
+
+
+def dense_inverse(A_free: np.ndarray, dtype=torch.float64,
+                  device="cpu") -> torch.Tensor:
+    """Cholesky-based SPD inverse computed once on the host in f64."""
+    import scipy.linalg
+    c, low = scipy.linalg.cho_factor(A_free.astype(np.float64))
+    inv = scipy.linalg.cho_solve((c, low), np.eye(A_free.shape[0]))
+    return torch.from_numpy(inv).to(device=device, dtype=dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseInverseSolver:
+    Ainv: torch.Tensor  # (nf, nf)
+
+    def solve(self, rhs):
+        """rhs (nf, ncoord) -> (nf, ncoord): one matmul."""
+        return self.Ainv @ rhs
+
+
+def _jacobi(diag):
+    Minv_diag = (1.0 / diag)[:, None]
+    return lambda r: Minv_diag * r
+
+
+def pcg(operator: Callable, rhs, diag, tol: float = 1e-12,
+        max_iters: int = 400, x0=None, precond: Optional[Callable] = None):
+    """Preconditioned CG on (n, ncoord) blocks (plain torch).
+
+    operator: v (n, c) -> A v (n, c). diag: (n,) Jacobi diagonal, used when
+    precond (an SPD M^-1 r callable) is None. Returns (x, n_iters,
+    host_reads). Per-column alpha/beta; converged columns freeze."""
+    if precond is None:
+        precond = _jacobi(diag)
+    x = torch.zeros_like(rhs) if x0 is None else x0
+    r = rhs - operator(x)
+    z = precond(r)
+    p = z
+    rz, rr = (r * z).sum(0), (r * r).sum(0)
+    rhs_norm2 = torch.clamp_min((rhs * rhs).sum(0), 1e-300)
+    tol2 = tol * tol
+    it = reads = 0
+    while it < max_iters:
+        reads += 1
+        if not bool((rr / rhs_norm2 > tol2).any()):
+            break
+        Ap = operator(p)
+        pAp = (p * Ap).sum(0)
+        active = (rr / rhs_norm2) > tol2
+        alpha = torch.where(
+            active, rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp),
+            torch.zeros_like(rz))
+        x = x + alpha[None, :] * p
+        r = r - alpha[None, :] * Ap
+        z = precond(r)
+        rz_new, rr = (r * z).sum(0), (r * r).sum(0)
+        beta = torch.where(
+            active, rz_new / torch.where(rz == 0, torch.ones_like(rz), rz),
+            torch.zeros_like(rz))
+        p = z + beta[None, :] * p
+        rz = rz_new
+        it += 1
+    return x, it, reads
+
+
+def pcg_fused(operator: Callable, rhs, diag, tol: float = 1e-12,
+              max_iters: int = 400, x0=None,
+              precond: Optional[Callable] = None):
+    """pcg with the vector half of each iteration in kernels B2
+    ({pAp, alpha, x +=, r -=, rr}) and B3 ({rz, beta, p =}). Same semantics
+    as pcg; the column dots are summed in another order. x0 is not
+    modified. Returns (x, n_iters, host_reads)."""
+    if precond is None:
+        precond = _jacobi(diag)
+    x = torch.zeros_like(rhs) if x0 is None else x0.clone()
+    r = rhs - operator(x)
+    p = precond(r)
+    rz, rr = (r * p).sum(0), (r * r).sum(0)
+    thresh = torch.clamp_min((rhs * rhs).sum(0), 1e-300) * (tol * tol)
+    it = reads = 0
+    while it < max_iters:
+        reads += 1
+        if not bool((rr > thresh).any()):
+            break
+        Ap = operator(p)
+        rr_new = ck.cg_update1(rz, p, Ap, x, r, rr, thresh)
+        z = precond(r)
+        rz = ck.cg_update2(rz, r, z, p, rr, thresh)
+        rr = rr_new
+        it += 1
+    return x, it, reads

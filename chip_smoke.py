@@ -1,0 +1,572 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints one line with its seconds; any failed check exits
+non-zero before the final result line):
+  1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
+  2. build the CUDA kernels from aa_admm_tpu_torch/csrc (one nvcc each, in
+     parallel);
+  3. each kernel against its plain torch twin on the card, float32 and
+     float64, at the CPU tests' shapes and at the main path's shapes; device
+     times of kernel and twin (CUDA-graph replays between CUDA events)
+     beside the kernel's bound;
+  4. a small float64 wire-mesh solve on the CG path (group closest-point
+     cache, reference > 20,000 triangles) on the GPU and on the CPU through
+     the port: function values and solution must agree;
+  5. the main path at full width: a synthetic wire mesh at MaleTorso scale
+     (about 231k vertices after subdivision, a 40k-triangle reference)
+     through ``optimize_mesh`` in float32, with every kernel's launches
+     counted;
+  6. a torch.profiler breakdown of the first five iterations of the
+     full-width solve (per-kernel device time, device idle share; the
+     table goes to result/profile_full.txt).
+
+The last two lines are the kernels' JSON record and the run's result JSON.
+Imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
+H100_F64_FLOPS = 34e12         # float64 outside the tensor cores
+ERICSON_FLOPS_PER_PAIR = 120   # Ericson test + select + distance, rounded up
+MAIN_Q = 65536                 # the group fast path's query tile
+# B1's tile shapes (queries, candidates) on the main path
+ERICSON_SHAPES = {"group fast path": (MAIN_Q, 96), "group refresh": (8192, 48),
+                  "2-stage": (4096, 48)}
+MAIN_N = 230400                # CG vector rows at MaleTorso scale
+
+T0 = time.perf_counter()
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def phase(name, t0):
+    print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean milliseconds per eager call of fn() (CUDA events around a loop
+    of calls): the host's Python and launch cost included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, reps=5):
+    """Mean device milliseconds of one fn() call: `iters` calls captured
+    into a CUDA graph, replayed `reps` times between CUDA events, so the
+    host's per-call cost is not in the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def time_pair(kernel, twin, iters=20):
+    """(kernel device ms, twin device ms, kernel eager ms, twin eager ms)."""
+    return (device_ms(kernel, iters), device_ms(twin, iters),
+            cuda_ms(kernel, iters), cuda_ms(twin, iters))
+
+
+def bound_ms(n_bytes, n_flops, dtype):
+    peak = H100_F32_FLOPS if dtype == torch.float32 else H100_F64_FLOPS
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, n_flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# Synthetic scenes
+# ---------------------------------------------------------------------------
+
+def quad_grid(nx, ny, noise, field=None, seed=0):
+    """Noisy (nx x ny)-face quad grid, unit spacing, z = field(x, y) + noise."""
+    from aa_admm_tpu_torch.core.polymesh import PolyMesh
+    rng = np.random.default_rng(seed)
+    xs, ys = np.meshgrid(np.arange(nx + 1, dtype=float),
+                         np.arange(ny + 1, dtype=float), indexing="ij")
+    z = field(xs, ys) if field is not None else np.zeros_like(xs)
+    verts = np.stack([xs.ravel(), ys.ravel(),
+                      (z + noise * rng.normal(size=xs.shape)).ravel()], 1)
+    i, j = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    a = (i * (ny + 1) + j).ravel()
+    faces = np.stack([a, a + ny + 1, a + ny + 2, a + 1], 1).tolist()
+    return PolyMesh(verts=verts, faces=faces)
+
+
+def height_field_tris(n, lo, hi, field):
+    """The height field z = field(x, y) over [lo, hi]^2, triangulated on an
+    n x n vertex grid: 2 (n-1)^2 triangles."""
+    u = np.linspace(lo, hi, n)
+    X, Y = np.meshgrid(u, u, indexing="ij")
+    verts = np.stack([X.ravel(), Y.ravel(), field(X, Y).ravel()], 1)
+    i, j = np.meshgrid(np.arange(n - 1), np.arange(n - 1), indexing="ij")
+    a = (i * n + j).ravel()
+    b = a + n
+    faces = np.concatenate([np.stack([a, b, a + 1], 1),
+                            np.stack([b, b + 1, a + 1], 1)])
+    return verts, faces
+
+
+def small_scene():
+    """The CPU tests' CG-path scene: a 4x4 noisy grid (81 vertices after
+    subdivision) over a 20,402-triangle bumpy reference."""
+    from aa_admm_tpu_torch.core.polymesh import subdivide_and_smooth
+
+    def field(x, y):
+        return 0.3 * np.sin(0.13 * x) * np.cos(0.09 * y)
+
+    mesh = quad_grid(4, 4, 0.15)
+    el = mesh.average_edge_length()
+    ref_v, ref_f = height_field_tris(102, -15.0, 21.0, field)
+    return subdivide_and_smooth(mesh), el * 0.5, ref_v, ref_f
+
+
+def full_scene(n_faces=240, n_ref=142):
+    """MaleTorso scale: a noisy 240 x 240-face quad grid on a bumpy height
+    field, subdivided and smoothed to 231,361 vertices; the reference is
+    the same field triangulated to 2 * 141^2 = 39,762 triangles."""
+    from aa_admm_tpu_torch.core.polymesh import subdivide_and_smooth
+
+    def field(x, y):
+        return 3.0 * np.sin(2 * np.pi * x / 80.0) * np.cos(2 * np.pi * y / 60.0)
+
+    mesh = quad_grid(n_faces, n_faces, 0.05, field=field, seed=1)
+    el = mesh.average_edge_length()
+    ref_v, ref_f = height_field_tris(n_ref, -2.0, n_faces + 2.0, field)
+    return subdivide_and_smooth(mesh), el * 0.5, ref_v, ref_f
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their twins
+# ---------------------------------------------------------------------------
+
+def ericson_inputs(Q, K, dtype, device, seed):
+    g = np.random.default_rng(seed)
+    p = torch.from_numpy(g.standard_normal((Q, 3))).to(device, dtype)
+    cand = torch.from_numpy(g.standard_normal((Q, K, 3, 3))).to(device, dtype)
+    return p, cand
+
+
+def check_ericson(ck, device, record):
+    """B1 vs twin at the test shapes, degenerate triangles and the main
+    path's tile shapes; returns the main-shape float32 record."""
+    from aa_admm_tpu_torch.ops.closest_point import (
+        _closest_point_candidates_all)
+    tol = {torch.float64: (1e-12, 1e-12), torch.float32: (2e-6, 1e-5)}
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        dtol, qtol = tol[dtype]
+        for Q, K in [(300, 7), (128, 48), (1000, 16), (MAIN_Q, 48),
+                     (MAIN_Q, 96)]:
+            p, cand = ericson_inputs(Q, K, dtype, device, Q + K)
+            q_k, d_k = ck.ericson_candidates(p, cand)
+            candT = cand.reshape(Q, K, 9).permute(2, 1, 0).contiguous()
+            qv, dv = ck.ericson_candidates_T_plain(p.T.contiguous(), candT)
+            torch.cuda.synchronize()
+            # Points are compared where the minimum is not a near-tie: on a
+            # near-tie the kernel and the twin may round to different
+            # winners (both exact to the tolerance).
+            _, sqd = _closest_point_candidates_all(p, cand)
+            two = torch.topk(sqd, min(2, K), dim=1, largest=False).values
+            gap = two[:, -1] - two[:, 0]
+            clear = (gap > 5 * dtol * torch.clamp_min(two[:, 0], 1.0)) | (K == 1)
+            ed = float((d_k - dv[0]).abs().max())
+            eq = float((q_k - qv.T)[clear].abs().max())
+            check(torch.allclose(d_k, dv[0], rtol=dtol, atol=dtol),
+                  f"ericson Q={Q} K={K} {dtype}: sqdist err {ed}")
+            check(torch.allclose(q_k[clear], qv.T[clear], rtol=qtol, atol=qtol),
+                  f"ericson Q={Q} K={K} {dtype}: point err {eq}")
+            check(float(clear.float().mean()) > 0.99,
+                  f"ericson Q={Q} K={K} {dtype}: too many near-ties")
+            if dtype == torch.float32:
+                worst = max(worst, ed, eq)
+        # zero-area triangles and on-surface queries must not NaN
+        p = torch.tensor([[0.0, 0.0, 0.0], [1.0, 2.0, 3.0]], dtype=dtype,
+                         device=device)
+        tri = torch.tensor([[[0, 0, 0], [0, 0, 0], [0, 0, 0]],
+                            [[1, 2, 3], [1, 2, 3], [4, 5, 6]]], dtype=dtype,
+                           device=device)
+        cand = torch.stack([tri, tri])
+        q_k, d_k = ck.ericson_candidates(p, cand)
+        qv, dv = ck.ericson_candidates_T_plain(
+            p.T.contiguous(), cand.reshape(2, 2, 9).permute(2, 1, 0).contiguous())
+        check(bool(torch.isfinite(q_k).all()), "ericson degenerate: NaN")
+        check(torch.allclose(q_k, qv.T, atol=1e-6)
+              and torch.allclose(d_k, dv[0], atol=1e-6),
+              "ericson degenerate: mismatch")
+    # timing at B1's three tile shapes on the main path
+    record["ericson"] = {}
+    for where, (Q, K) in ERICSON_SHAPES.items():
+        p, cand = ericson_inputs(Q, K, torch.float32, device, 5)
+        candT = cand.reshape(Q, K, 9).permute(2, 1, 0).contiguous()
+        pT = p.T.contiguous()
+        ms, plain, ms_e, plain_e = time_pair(
+            lambda: ck.ericson_candidates_T(pT, candT),
+            lambda: ck.ericson_candidates_T_plain(pT, candT), iters=10)
+        n_bytes = 4 * (9 * K * Q + 3 * Q + 4 * Q)
+        b, by = bound_ms(n_bytes, ERICSON_FLOPS_PER_PAIR * K * Q,
+                         torch.float32)
+        print(f"  B1 ericson f32 {where} Q={Q} K={K}: kernel {ms:.4f} ms, "
+              f"twin {plain:.4f} ms (device, CUDA graph); per eager call "
+              f"{ms_e:.4f} / {plain_e:.4f} ms; bound {b:.4f} ms ({by}, "
+              f"{n_bytes / 1e9:.3f} GB)")
+        record["ericson"][where] = dict(ms=ms, plain_ms=plain, bound_ms=b,
+                                        bound_by=by, max_abs_err=worst)
+
+
+def ericson_launch_split(stats, n_queries):
+    """B1 launches of the main path by tile shape, from the solve's
+    counters: each cache refresh sweeps 8,192-query tiles, each fast-path
+    trial 65,536-query tiles, and the init/final energies 4,096-query
+    2-stage tiles."""
+    def tiles(shape):
+        return -(-n_queries // ERICSON_SHAPES[shape][0])
+
+    refreshes = stats["cp_refreshes"]
+    return {"group fast path": (stats["trials"] - refreshes)
+            * tiles("group fast path"),
+            "group refresh": refreshes * tiles("group refresh"),
+            "2-stage": 2 * tiles("2-stage")}
+
+
+def cg_inputs(n, c, dtype, device, seed):
+    g = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a).to(device, dtype)
+
+    v = {k: t(g.standard_normal((n, c))) for k in ("x", "r", "p", "ap", "z")}
+    rz = t(g.random(c) + 0.5)
+    # column 1 frozen (rr_prev <= thresh); column 2 has a zero divisor
+    # (p and r zero there, so pAp = 0 and r.z = 0 next).
+    rr_prev = t(np.array([1.0, 1e-30, 1.0][:c]))
+    thresh = t(np.array([1e-20, 1e-20, 1e-20][:c]))
+    v["p"][:, c - 1] = 0
+    rz_old = rz.clone()
+    rz_old[0] = 0
+    return v, rz, rz_old, rr_prev, thresh
+
+
+def check_cg(ck, device, record, c=3):
+    """B2/B3 vs twins at n=230,400, c=3 with a frozen column and zero
+    divisors (pAp = 0, rz_old = 0)."""
+    n = MAIN_N
+    rtol = {torch.float64: 1e-12, torch.float32: 1e-3}
+    worst1 = worst2 = 0.0
+    for dtype in (torch.float32, torch.float64):
+        v, rz, rz_old, rr_prev, thresh = cg_inputs(n, c, dtype, device, 7)
+        xk, rk = v["x"].clone(), v["r"].clone()
+        xt, rt = v["x"].clone(), v["r"].clone()
+        rr_k = ck.cg_update1(rz, v["p"], v["ap"], xk, rk, rr_prev, thresh)
+        rr_t = ck.cg_update1_plain(rz, v["p"], v["ap"], xt, rt, rr_prev,
+                                   thresh)
+        pk, pt = v["p"].clone(), v["p"].clone()
+        rz_k = ck.cg_update2(rz_old, rk, v["z"], pk, rr_prev, thresh)
+        rz_t = ck.cg_update2_plain(rz_old, rt, v["z"], pt, rr_prev, thresh)
+        torch.cuda.synchronize()
+        tol = rtol[dtype]
+        for name, a, b in [("x", xk, xt), ("r", rk, rt), ("rr", rr_k, rr_t),
+                           ("p", pk, pt), ("rz", rz_k, rz_t)]:
+            err = float((a - b).abs().max())
+            check(torch.allclose(a, b, rtol=tol, atol=tol),
+                  f"cg {name} {dtype}: max abs err {err}")
+            if dtype == torch.float32:
+                if name in ("x", "r", "rr"):
+                    worst1 = max(worst1, err)
+                else:
+                    worst2 = max(worst2, err)
+        check(bool(torch.equal(xk[:, 1], v["x"][:, 1])),
+              "cg frozen column moved")
+    v, rz, _, rr_prev, thresh = cg_inputs(n, c, torch.float32, device, 8)
+    x, r, p = v["x"], v["r"], v["p"]
+    rz_old = (r * v["z"]).sum(0)     # beta ~ 1: repeated calls stay finite
+    ms1, pl1, ms1_e, pl1_e = time_pair(
+        lambda: ck.cg_update1(rz, p, v["ap"], x, r, rr_prev, thresh),
+        lambda: ck.cg_update1_plain(rz, p, v["ap"], x, r, rr_prev, thresh))
+    ms2, pl2, ms2_e, pl2_e = time_pair(
+        lambda: ck.cg_update2(rz_old, r, v["z"], p, rr_prev, thresh),
+        lambda: ck.cg_update2_plain(rz_old, r, v["z"], p, rr_prev, thresh))
+    b1, by1 = bound_ms(6 * n * c * 4, 8 * n * c, torch.float32)
+    b2, by2 = bound_ms(4 * n * c * 4, 4 * n * c, torch.float32)
+    print(f"  B2 cg_update1 f32 n={n} c={c}: kernel {ms1:.4f} ms, twin "
+          f"{pl1:.4f} ms (device, CUDA graph); per eager call {ms1_e:.4f} / "
+          f"{pl1_e:.4f} ms; bound {b1:.4f} ms ({by1})")
+    print(f"  B3 cg_update2 f32 n={n} c={c}: kernel {ms2:.4f} ms, twin "
+          f"{pl2:.4f} ms (device, CUDA graph); per eager call {ms2_e:.4f} / "
+          f"{pl2_e:.4f} ms; bound {b2:.4f} ms ({by2})")
+    record["cg_update1"] = dict(ms=ms1, plain_ms=pl1, bound_ms=b1,
+                                bound_by=by1, max_abs_err=worst1)
+    record["cg_update2"] = dict(ms=ms2, plain_ms=pl2, bound_ms=b2,
+                                bound_by=by2, max_abs_err=worst2)
+
+
+# ---------------------------------------------------------------------------
+# Phases 4 and 5: the solve
+# ---------------------------------------------------------------------------
+
+def run_small_solve(device, max_iter=20):
+    import functools
+    from aa_admm_tpu_torch.apps import wire_mesh_opt as wm
+    from aa_admm_tpu_torch.solver.geometry import ALMGeometrySolver
+
+    sub, el, ref_v, ref_f = small_scene()
+    saved = wm.ALMGeometrySolver
+    wm.ALMGeometrySolver = functools.partial(ALMGeometrySolver,
+                                             dense_threshold=0)
+    try:
+        return wm.optimize_mesh(sub, ref_v, ref_f, max_iter=max_iter,
+                                anderson_m=5, edge_length=el,
+                                result_dir="result/smoke_small",
+                                device=device)
+    finally:
+        wm.ALMGeometrySolver = saved
+
+
+def phase_f64_solve(ck, device="cuda"):
+    ck.reset_launch_counts()
+    s_gpu = run_small_solve(device)
+    counts = ck.launch_counts()
+    s_cpu = run_small_solve("cpu")
+    fg, fc = np.asarray(s_gpu.function_values), np.asarray(s_cpu.function_values)
+    check(len(fg) == len(fc) and len(fg) > 0, "f64 solve: iteration counts differ")
+    rel = float(np.max(np.abs(fg - fc) / np.abs(fc)))
+    dx = float(np.abs(s_gpu.get_solution() - s_cpu.get_solution()).max())
+    print(f"  f64 GPU vs CPU: {len(fg)} iterations, max rel fv diff {rel:.3e}, "
+          f"max |x diff| {dx:.3e}, rejects gpu {sum(s_gpu.anderson_reset)} "
+          f"cpu {sum(s_cpu.anderson_reset)}, launches {counts}")
+    check(rel <= 1e-8, f"f64 solve: function values differ by {rel}")
+    check(dx <= 1e-8, f"f64 solve: solutions differ by {dx}")
+    check(s_gpu.anderson_reset == s_cpu.anderson_reset,
+          "f64 solve: reject sequences differ")
+    check(all(v > 0 for v in counts.values()),
+          f"f64 solve: a kernel was not launched: {counts}")
+
+
+def phase_full_solve(ck, device="cuda", scene=full_scene, max_iter=20):
+    from aa_admm_tpu_torch.apps.wire_mesh_opt import (check_wiremesh_error,
+                                                      optimize_mesh)
+    t0 = time.perf_counter()
+    sub, el, ref_v, ref_f = scene()
+    t_scene = time.perf_counter() - t0
+    print(f"  scene: {sub.n_verts()} vertices, {len(sub.faces)} faces, "
+          f"reference {len(ref_f)} triangles, target edge {el:.4f} "
+          f"({t_scene:.1f} s)", flush=True)
+    min_a, max_a = np.pi * 0.25, np.pi * 0.75
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    solver = optimize_mesh(sub, ref_v, ref_f, max_iter=max_iter, anderson_m=5,
+                           edge_length=el, min_angle_radian=min_a,
+                           max_angle_radian=max_a, dtype=np.float32,
+                           result_dir="result/smoke_full", device=device)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    t_total = time.perf_counter() - t0
+    st = solver.stats
+    out = solver.get_solution()
+    n_it = len(solver.function_values)
+    print(f"  optimize_mesh {t_total:.2f} s: setup_ADMM {solver.setup_s:.2f} s, "
+          f"solve {st['solve_s']:.3f} s, "
+          f"{st['solve_s'] / max(n_it, 1) * 1e3:.1f} ms/iteration, "
+          f"{n_it} accepted of {st['trials']} trials, "
+          f"{st['cg_iters']} CG iterations, {st['cp_refreshes']} cp-cache "
+          f"refreshes, {st['host_reads'] / max(st['trials'], 1):.1f} host "
+          f"reads/trial, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  kernel launches on the main path: {counts}")
+    e_b, a_b, _ = check_wiremesh_error(sub, sub.verts, el, min_a, max_a)
+    e_a, a_a, _ = check_wiremesh_error(sub, out, el, min_a, max_a)
+    from aa_admm_tpu_torch.apps.wire_mesh_opt import check_ref_surface_distance
+    r_b = check_ref_surface_distance(sub.verts, sub, ref_v, ref_f,
+                                     device=device)
+    r_a = check_ref_surface_distance(out, sub, ref_v, ref_f, device=device)
+    print(f"  edge err mean {e_b.mean():.4e} -> {e_a.mean():.4e}, max "
+          f"{e_b.max():.4e} -> {e_a.max():.4e}; angle err max {a_b.max():.4e}"
+          f" -> {a_a.max():.4e}; ref dist max {r_b.max():.4e} -> "
+          f"{r_a.max():.4e}")
+    check(np.isfinite(out).all() and out.shape == sub.verts.shape,
+          "full solve: non-finite or misshapen solution")
+    check(np.isfinite(solver.function_values).all(),
+          "full solve: non-finite function values")
+    check(e_a.mean() < e_b.mean(), "full solve: mean edge error did not fall")
+    check(all(v > 0 for v in counts.values()),
+          f"full solve: a kernel was not launched: {counts}")
+    check(st["cp_refreshes"] >= 1 and st["cg_iters"] > 0,
+          "full solve: no cp-cache refresh or no CG iteration")
+    split = ericson_launch_split(st, sub.n_verts())
+    print(f"  B1 launches by tile shape: {split}")
+    check(sum(split.values()) == counts["ericson"],
+          f"full solve: B1 launches {counts['ericson']} != {split}")
+    return counts, solver, split
+
+
+def profile_trials(solver, init_x, n_iter=5, out="result/profile_full.txt"):
+    """Device-time breakdown of the first `n_iter` accepted iterations of
+    the solve just run (same system; the cache starts cold, so the first
+    trial refreshes): torch.profiler's per-kernel self device time, the
+    device's busy share of the wall time, host reads per trial."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    from aa_admm_tpu_torch.solver import geometry as g
+    x0 = torch.as_tensor(np.asarray(init_x, np.float32), device=solver.device)
+    state = g._alm_init_state(solver.system, x0)
+    state["limit"] = n_iter = min(n_iter, solver.system.max_iter)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = g.solve_alm_chunk(solver.system, state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device events only (kernels, copies): an operator's row repeats the
+    # device time of the kernels it launched
+    busy_ms = sum(dev_us(e) for e in ka
+                  if str(e.device_type).endswith("CUDA")) / 1e3
+    trials = state["trial"]
+    table = ka.table(sort_by="self_cuda_time_total", row_limit=25)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        f.write(table)
+    print(f"  profile: {n_iter} iterations, {trials} trials, wall "
+          f"{wall_ms:.1f} ms ({wall_ms / trials:.2f} ms/trial), device busy "
+          f"{busy_ms:.1f} ms ({busy_ms / trials:.2f} ms/trial), device idle "
+          f"share {1 - busy_ms / wall_ms:.3f}, host reads "
+          f"{state['reads'] / trials:.1f}/trial, CG iterations "
+          f"{state['cgit'] / trials:.1f}/trial")
+    rows = sorted((e for e in ka if str(e.device_type).endswith("CUDA")),
+                  key=dev_us, reverse=True)[:15]
+    for e in rows:
+        print(f"    {dev_us(e) / 1e3 / trials:9.3f} ms/trial  x{e.count:<6d} "
+              f"{e.key[:90]}")
+
+
+def main():
+    t0 = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from aa_admm_tpu_torch.ops import cuda_kernels as ck
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi: no output"
+    print(card)
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, python "
+          f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
+    phase("1 card", t0)
+
+    t0 = time.perf_counter()
+    logs = ck.build_all(verbose=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  nvcc {name}: {line.strip()}")
+    phase("2 build", t0)
+
+    record = {}
+    t0 = time.perf_counter()
+    check_ericson(ck, torch.device("cuda"), record)
+    check_cg(ck, torch.device("cuda"), record)
+    phase("3 kernels vs twins", t0)
+
+    t0 = time.perf_counter()
+    phase_f64_solve(ck)
+    phase("4 f64 solve GPU vs CPU", t0)
+
+    t0 = time.perf_counter()
+    counts, solver, split = phase_full_solve(ck)
+    phase("5 full-width f32 solve", t0)
+    t0 = time.perf_counter()
+    profile_trials(solver, solver.system.x0.cpu().numpy())
+    phase("6 profile of five full-width iterations", t0)
+
+    # B1 is reported at the tile shape the main path launched most
+    main_shape = max(split, key=split.get)
+    record["ericson"] = record["ericson"][main_shape]
+    print(f"  B1 reported at its {main_shape} shape "
+          f"{ERICSON_SHAPES[main_shape]}")
+
+    meta = {
+        "ericson": ("aa_admm_tpu_torch/csrc/ericson.cu",
+                    "aa_admm_tpu/ops/pallas_kernels.py:47"),
+        "cg_update1": ("aa_admm_tpu_torch/csrc/cg_update.cu",
+                       "aa_admm_tpu/ops/pallas_kernels.py:207"),
+        "cg_update2": ("aa_admm_tpu_torch/csrc/cg_update.cu",
+                       "aa_admm_tpu/ops/pallas_kernels.py:230"),
+    }
+    kernels = []
+    for name, (src, repl) in meta.items():
+        r = record[name]
+        kernels.append(dict(name=name, route="cuda", source=src,
+                            replaces=repl, launches=counts[name],
+                            max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=None))
+    print(f"  total {time.perf_counter() - T0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        rc = main()
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        rc = 2
+    sys.exit(rc)
