@@ -4,9 +4,11 @@ aa_admm_tpu/ops/closest_point.py).
 Replaces the reference's igl::AABB traversals (Geometry/TriMeshAABB.h:38-77)
 with tiled brute force (small meshes), a coarse-to-fine 2-stage query (large
 meshes) and movement-bounded candidate caches for the solver loop. Every
-exact sweep over per-query candidates goes through kernel B1
-(``cuda_kernels.ericson_candidates``): on CUDA tensors the hand-written
-kernel, on CPU tensors its plain twin.
+exact sweep over per-query candidates goes through kernel B1: the indexed
+entry ``cuda_kernels.ericson_candidates_idx``, which gathers each query's
+candidates from the triangle table itself, or, for the candT cache, the
+(9, K, Q) entry ``ericson_candidates_T``. On CUDA tensors the hand-written
+kernel runs, on CPU tensors its plain twin.
 
 Host reads: each cached query decides on the host whether the cache is still
 valid (one read of ``need``) and returns that decision, so the caller can
@@ -26,18 +28,24 @@ import torch
 from . import cuda_kernels as ck
 
 
+def _dot3(u, v):
+    """u . v over the last axis of size 3, summed as (x + y) + z whatever
+    the layout (a torch sum's order depends on it), as kernel B1 sums."""
+    return u[..., 0] * v[..., 0] + u[..., 1] * v[..., 1] + u[..., 2] * v[..., 2]
+
+
 def _ericson_regions(p, a, b, c):
     """Ericson closest point on triangles (a, b, c) for points p, all
     broadcast to (..., 3). Branch-free region tests (RTCD 5.1.5)."""
     ab, ac, ap = b - a, c - a, p - a
-    d1 = (ab * ap).sum(-1)
-    d2 = (ac * ap).sum(-1)
+    d1 = _dot3(ab, ap)
+    d2 = _dot3(ac, ap)
     bp = p - b
-    d3 = (ab * bp).sum(-1)
-    d4 = (ac * bp).sum(-1)
+    d3 = _dot3(ab, bp)
+    d4 = _dot3(ac, bp)
     cp = p - c
-    d5 = (ab * cp).sum(-1)
-    d6 = (ac * cp).sum(-1)
+    d5 = _dot3(ab, cp)
+    d6 = _dot3(ac, cp)
     va = d3 * d6 - d5 * d4
     vb = d5 * d2 - d1 * d6
     vc = d1 * d4 - d3 * d2
@@ -68,8 +76,8 @@ def _ericson_regions(p, a, b, c):
     q = torch.where(in_c[..., None], c.expand_as(q), q)
     q = torch.where(in_b[..., None], b.expand_as(q), q)
     q = torch.where(in_a[..., None], a.expand_as(q), q)
-    sqd = ((p - q) ** 2).sum(-1)
-    return q, sqd
+    e = p - q
+    return q, _dot3(e, e)
 
 
 def closest_point_on_triangles(p, tri_verts):
@@ -147,7 +155,7 @@ def closest_point_on_mesh_2stage(p, tri_verts, k: int = 48,
         pc = p[q0:q0 + query_tile]
         lower = _lower_bounds(pc, cent, c2, rad, c0)
         _, idx = torch.topk(lower, k, dim=1, largest=False, sorted=True)
-        q, _ = _closest_point_candidates(pc, tri_verts[idx])
+        q, _ = ck.ericson_candidates_idx(pc, tri_verts, idx)
         out[q0:q0 + query_tile] = q
     return out
 
@@ -277,14 +285,6 @@ def _cp_refresh(p, tri_verts, k: int, query_tile: int,
     return q, CPCache(idx=idx, p0=p, slack=slack, candT=candT)
 
 
-def _gather_sub_tris(tri_sub, gidx):
-    """(Tsub, s, 3, 3) subgroup blocks gathered per query:
-    gidx (q, NG) -> candidates (q, NG*s, 3, 3)."""
-    qn, ng = gidx.shape
-    s = tri_sub.shape[1]
-    return tri_sub[gidx].reshape(qn, ng * s, 3, 3)
-
-
 def _cp_refresh_group(p, tri_blk, cent_blk, rad_blk, gcenter, gradius,
                       n_sub: int, sub_size: int, query_tile: int,
                       prefilter: int = 32, k: int = 48):
@@ -322,7 +322,7 @@ def _cp_refresh_group(p, tri_blk, cent_blk, rad_blk, gcenter, gradius,
         lower = torch.clamp_min(dt_ - rr, 0.0)
         _, j = _smallest_k(lower, k)
         idx = torch.gather(slots, 1, j)
-        q, sqd = _closest_point_candidates(pc, tri_flat[idx])
+        q, sqd = ck.ericson_candidates_idx(pc, tri_flat, idx)
         sub_score = lower.reshape(qn, -1, sub_size).amin(-1)
         sslots = (gsel[..., None] * n_per_g + ar_n).reshape(qn, -1)
         vs, js = _smallest_k(sub_score, ng + 1)
@@ -345,9 +345,10 @@ def closest_point_cached_group(p, tri_blk, cent_blk, rad_blk, gcenter,
                                sub_size: int = 16, query_tile: int = 8192,
                                fast_tile: int = 65536):
     """Exact closest point via the subgroup cache; self-refreshing.
-    Returns (points (Q, 3), cache, refreshed). The fast path gathers each
-    query's NG*S candidates in tiles of ``fast_tile`` queries (bounding the
-    (tile, NG*S, 3, 3) candidate buffer) and sweeps them with kernel B1."""
+    Returns (points (Q, 3), cache, refreshed). The fast path sweeps each
+    query's NG subgroups of ``sub_size`` contiguous triangles with kernel B1
+    (indexed entry), in tiles of ``fast_tile`` queries, which bound the
+    candidate buffer of the twin on CPU tensors."""
     ng = int(cache.gidx.shape[1])
     tri_blk = tri_blk.to(p.dtype)
     if _needs_refresh(p, cache):
@@ -356,12 +357,12 @@ def closest_point_cached_group(p, tri_blk, cent_blk, rad_blk, gcenter,
             gcenter.to(p.dtype), gradius.to(p.dtype), ng, sub_size,
             query_tile)
         return q, cache, True
-    tri_sub = tri_blk.reshape(-1, sub_size, 3, 3)
+    tri_flat = tri_blk.reshape(-1, 3, 3)
     out = torch.empty_like(p)
     for q0 in range(0, p.shape[0], fast_tile):
         sl = slice(q0, q0 + fast_tile)
-        out[sl], _ = _closest_point_candidates(
-            p[sl], _gather_sub_tris(tri_sub, cache.gidx[sl]))
+        out[sl], _ = ck.ericson_candidates_idx(p[sl], tri_flat,
+                                               cache.gidx[sl], sub=sub_size)
     return out, cache, False
 
 
@@ -383,16 +384,9 @@ def closest_point_cached(p, tri_verts, cache: CPCache,
     out = torch.empty_like(p)
     for q0 in range(0, p.shape[0], query_tile):
         sl = slice(q0, q0 + query_tile)
-        out[sl], _ = _closest_point_candidates(p[sl],
-                                               tri_verts[cache.idx[sl]])
+        out[sl], _ = ck.ericson_candidates_idx(p[sl], tri_verts,
+                                               cache.idx[sl])
     return out, cache, False
-
-
-def _closest_point_candidates(p, cand):
-    """Exact closest point over per-query candidate triangles through
-    kernel B1 (its twin on CPU tensors). p: (Q, 3); cand: (Q, K, 3, 3).
-    Returns (point (Q, 3), sqdist (Q,))."""
-    return ck.ericson_candidates(p, cand)
 
 
 def _closest_point_candidates_all(p, cand):

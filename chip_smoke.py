@@ -10,16 +10,21 @@ non-zero before the final result line):
   3. each kernel against its plain torch twin on the card, float32 and
      float64, at the CPU tests' shapes and at the main path's shapes; device
      times of kernel and twin (CUDA-graph replays between CUDA events)
-     beside the kernel's bound;
+     beside the kernel's bound; B1's indexed entry also against the chain
+     it replaced (gather, relayout, plane entry); B2 called twice must give
+     equal bits;
   4. a small float64 wire-mesh solve on the CG path (group closest-point
      cache, reference > 20,000 triangles) on the GPU and on the CPU through
-     the port: function values and solution must agree;
+     the port: function values and solution must agree; then the same on
+     the flat cache with cached (9, K, Q) candidates (reference of 6,962
+     triangles), the path of B1's plane entry;
   5. the main path at full width: a synthetic wire mesh at MaleTorso scale
      (about 231k vertices after subdivision, a 40k-triangle reference)
      through ``optimize_mesh`` in float32, with every kernel's launches
      counted;
   6. a torch.profiler breakdown of the first five iterations of the
-     full-width solve (per-kernel device time, device idle share; the
+     full-width solve (per-kernel device time, device idle share, and the
+     port's kernels' device time per launch on the solve's own data; the
      table goes to result/profile_full.txt).
 
 The last two lines are the kernels' JSON record and the run's result JSON.
@@ -41,10 +46,17 @@ H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
 H100_F64_FLOPS = 34e12         # float64 outside the tensor cores
 ERICSON_FLOPS_PER_PAIR = 120   # Ericson test + select + distance, rounded up
 MAIN_Q = 65536                 # the group fast path's query tile
-# B1's tile shapes (queries, candidates) on the main path
-ERICSON_SHAPES = {"group fast path": (MAIN_Q, 96), "group refresh": (8192, 48),
-                  "2-stage": (4096, 48)}
+# B1's tiles on the main path, all through the indexed entry:
+# (queries, index columns G, sub); candidates K = G * sub
+ERICSON_SHAPES = {"group fast path": (MAIN_Q, 6, 16),
+                  "group refresh": (8192, 48, 1), "2-stage": (4096, 48, 1)}
+MAIN_T = 39808                 # the main path's triangle table (Morton-padded)
 MAIN_N = 230400                # CG vector rows at MaleTorso scale
+# the kernels of the subgroup-cache path (phases 4 and 5), and of the flat
+# cache with cached (9, K, Q) candidates (phase 4, second solve)
+MAIN_PATH_KERNELS = ("ericson_idx", "cg_update1", "cg_update2")
+CANDT_PATH_KERNELS = ("ericson", "ericson_idx", "cg_update1", "cg_update2")
+SMALL_N_REF, CANDT_N_REF = 102, 60     # 20,402 and 6,962 triangles
 
 T0 = time.perf_counter()
 
@@ -151,9 +163,11 @@ def height_field_tris(n, lo, hi, field):
     return verts, faces
 
 
-def small_scene():
+def small_scene(n_ref=102):
     """The CPU tests' CG-path scene: a 4x4 noisy grid (81 vertices after
-    subdivision) over a 20,402-triangle bumpy reference."""
+    subdivision) over a bumpy reference of 2 (n_ref - 1)^2 triangles:
+    20,402 (subgroup cache) by default, 6,962 at n_ref = 60 (flat cache
+    with cached (9, K, Q) candidates)."""
     from aa_admm_tpu_torch.core.polymesh import subdivide_and_smooth
 
     def field(x, y):
@@ -161,7 +175,7 @@ def small_scene():
 
     mesh = quad_grid(4, 4, 0.15)
     el = mesh.average_edge_length()
-    ref_v, ref_f = height_field_tris(102, -15.0, 21.0, field)
+    ref_v, ref_f = height_field_tris(n_ref, -15.0, 21.0, field)
     return subdivide_and_smooth(mesh), el * 0.5, ref_v, ref_f
 
 
@@ -191,17 +205,71 @@ def ericson_inputs(Q, K, dtype, device, seed):
     return p, cand
 
 
-def check_ericson(ck, device, record):
-    """B1 vs twin at the test shapes, degenerate triangles and the main
-    path's tile shapes; returns the main-shape float32 record."""
+def ericson_idx_inputs(Q, G, sub, dtype, device, seed, n_rows=None):
+    """Random points, a random table of n_rows triangles (a multiple of sub;
+    default 4 G + 5 runs) and random run indices."""
+    g = np.random.default_rng(seed)
+    n_runs = (n_rows // sub) if n_rows else 4 * G + 5
+    p = torch.from_numpy(g.standard_normal((Q, 3))).to(device, dtype)
+    tris = torch.from_numpy(g.standard_normal((n_runs * sub, 3, 3))).to(
+        device, dtype)
+    idx = torch.from_numpy(g.integers(0, n_runs, size=(Q, G))).to(device)
+    return p, tris, idx
+
+
+def ericson_tie_inputs(sub, dtype, device):
+    """Queries at the origin over a triangle A (nearest at its vertex
+    (0, 0, 1)) and its mirror -A (nearest at (0, 0, -1)), both at squared
+    distance exactly 1, at many positions k; all other rows are far
+    triangles or 1e15 dummies, one index run duplicated. Returns
+    (p, tris, idx, expected points): the lowest k of A and -A wins."""
+    n_runs, G = (64, 48) if sub == 1 else (8, 6)
+    g = np.random.default_rng(3)
+    T = n_runs * sub
+    tris = g.standard_normal((T, 3, 3)) + 50.0
+    tris[T - sub // 2 - 1:] = 1e15
+    tri_a = np.asarray([[0.0, 0, 1], [1, 0, 2], [0, 1, 2]])
+    rows_a, rows_b = [sub + sub // 2, 2 * sub], [6 * sub - 1, 3 * sub]
+    tris[rows_a], tris[rows_b] = tri_a, -tri_a
+    idx, want = [], []
+    for seed in range(200):
+        runs = np.random.default_rng(seed).permutation(n_runs)[:G]
+        k = {r: int(np.where(runs == r // sub)[0][0]) * sub + r % sub
+             for r in rows_a + rows_b if r // sub in runs}
+        if k.keys() & set(rows_a) and k.keys() & set(rows_b):
+            idx.append(runs)
+            want.append([0, 0, 1.0 if min(k, key=k.get) in rows_a else -1.0])
+    dup = np.full(G, n_runs - 1)
+    dup[[1, G - 2]] = rows_a[0] // sub
+    idx.append(dup)
+    want.append([0, 0, 1.0])
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a)).to(device, dt)
+    return (torch.zeros((len(idx), 3), dtype=dtype, device=device), t(tris),
+            t(idx, torch.int64), t(want))
+
+
+def ericson_idx_bound(Q, G, sub, T, dtype):
+    """Bytes: idx, points and the table read once, point and distance
+    written once; operations: about 120 per (query, candidate)."""
+    w = 4 if dtype == torch.float32 else 8
+    n_bytes = 8 * Q * G + w * (3 * Q + 9 * T + 4 * Q)
+    return bound_ms(n_bytes, ERICSON_FLOPS_PER_PAIR * G * sub * Q, dtype)
+
+
+def check_ericson(ck, device, record, cand_q):
+    """B1's plane entry vs twin at the test shapes, degenerate triangles,
+    the main path's tile shapes with K = 48 or 96 candidates and its own
+    path's shape (cand_q queries x 48); returns the record at cand_q x 48."""
     from aa_admm_tpu_torch.ops.closest_point import (
         _closest_point_candidates_all)
     tol = {torch.float64: (1e-12, 1e-12), torch.float32: (2e-6, 1e-5)}
     worst = 0.0
     for dtype in (torch.float32, torch.float64):
         dtol, qtol = tol[dtype]
-        for Q, K in [(300, 7), (128, 48), (1000, 16), (MAIN_Q, 48),
-                     (MAIN_Q, 96)]:
+        for Q, K in [(300, 7), (128, 48), (1000, 16), (cand_q, 48),
+                     (MAIN_Q, 48), (MAIN_Q, 96)]:
             p, cand = ericson_inputs(Q, K, dtype, device, Q + K)
             q_k, d_k = ck.ericson_candidates(p, cand)
             candT = cand.reshape(Q, K, 9).permute(2, 1, 0).contiguous()
@@ -238,9 +306,11 @@ def check_ericson(ck, device, record):
         check(torch.allclose(q_k, qv.T, atol=1e-6)
               and torch.allclose(d_k, dv[0], atol=1e-6),
               "ericson degenerate: mismatch")
-    # timing at B1's three tile shapes on the main path
-    record["ericson"] = {}
-    for where, (Q, K) in ERICSON_SHAPES.items():
+    # timing at its own path's shape and at the main path's three tiles
+    for where, (Q, K) in {"candT cache": (cand_q, 48),
+                          "group refresh tile": (8192, 48),
+                          "2-stage tile": (4096, 48),
+                          "group fast path tile": (MAIN_Q, 96)}.items():
         p, cand = ericson_inputs(Q, K, torch.float32, device, 5)
         candT = cand.reshape(Q, K, 9).permute(2, 1, 0).contiguous()
         pT = p.T.contiguous()
@@ -250,19 +320,89 @@ def check_ericson(ck, device, record):
         n_bytes = 4 * (9 * K * Q + 3 * Q + 4 * Q)
         b, by = bound_ms(n_bytes, ERICSON_FLOPS_PER_PAIR * K * Q,
                          torch.float32)
-        print(f"  B1 ericson f32 {where} Q={Q} K={K}: kernel {ms:.4f} ms, "
-              f"twin {plain:.4f} ms (device, CUDA graph); per eager call "
+        print(f"  B1 ericson (planes) f32 {where} Q={Q} K={K} lanes "
+              f"{ck.ericson_lanes(Q, K)}: kernel {ms:.4f} ms, twin "
+              f"{plain:.4f} ms (device, CUDA graph); per eager call "
               f"{ms_e:.4f} / {plain_e:.4f} ms; bound {b:.4f} ms ({by}, "
               f"{n_bytes / 1e9:.3f} GB)")
-        record["ericson"][where] = dict(ms=ms, plain_ms=plain, bound_ms=b,
-                                        bound_by=by, max_abs_err=worst)
+        if where == "candT cache":
+            record["ericson"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
+                                     bound_by=by, max_abs_err=worst)
+
+
+def check_ericson_idx(ck, device, record):
+    """B1's indexed entry vs its twin, bit for bit at f32, at the CPU
+    tests' shapes, the main path's three tiles (over a 39,808-row table),
+    exact ties and dummy rows; then its time at each main-path tile beside
+    the twin's and, at the refresh tile, beside the chain it replaced."""
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    cases = [(300, 7, 1, None), (128, 48, 1, None), (200, 6, 16, None)]
+    cases += [(Q, G, sub, MAIN_T) for Q, G, sub in ERICSON_SHAPES.values()]
+    for dtype in (torch.float32, torch.float64):
+        for Q, G, sub, T in cases:
+            p, tris, idx = ericson_idx_inputs(Q, G, sub, dtype, device,
+                                              Q + G + sub, T)
+            q_k, d_k = ck.ericson_candidates_idx(p, tris, idx, sub)
+            q_t, d_t = ck.ericson_candidates_idx_plain(p, tris, idx, sub)
+            err = max(float((q_k - q_t).abs().max()),
+                      float((d_k - d_t).abs().max()))
+            worst[dtype] = max(worst[dtype], err)
+            check(err <= (0.0 if dtype == torch.float32 else 1e-12),
+                  f"ericson_idx Q={Q} G={G} sub={sub} {dtype}: err {err}")
+        for sub in (1, 16):
+            p, tris, idx, want = ericson_tie_inputs(sub, dtype, device)
+            q_k, d_k = ck.ericson_candidates_idx(p, tris, idx, sub)
+            q_t, d_t = ck.ericson_candidates_idx_plain(p, tris, idx, sub)
+            check(torch.equal(q_k, want) and torch.equal(q_t, want)
+                  and bool((d_k == 1).all()),
+                  f"ericson_idx ties sub={sub} {dtype}: not the first minimum")
+    print(f"  B1 ericson_idx vs twin: max abs err f32 "
+          f"{worst[torch.float32]:.3e}, f64 {worst[torch.float64]:.3e}; "
+          f"exact ties, duplicates and 1e15 dummies resolved as argmin")
+    record["ericson_idx"] = {}
+    for where, (Q, G, sub) in ERICSON_SHAPES.items():
+        p, tris, idx = ericson_idx_inputs(Q, G, sub, torch.float32, device, 5,
+                                          MAIN_T)
+        ms, plain, ms_e, plain_e = time_pair(
+            lambda: ck.ericson_candidates_idx(p, tris, idx, sub),
+            lambda: ck.ericson_candidates_idx_plain(p, tris, idx, sub),
+            iters=10)
+        b, by = ericson_idx_bound(Q, G, sub, MAIN_T, torch.float32)
+        print(f"  B1 ericson_idx f32 {where} Q={Q} G={G} sub={sub} lanes "
+              f"{ck.ericson_lanes(Q, G * sub)}: kernel {ms:.4f} ms, twin "
+              f"{plain:.4f} ms (device, CUDA graph); per eager call "
+              f"{ms_e:.4f} / {plain_e:.4f} ms; bound {b:.4f} ms ({by})")
+        record["ericson_idx"][where] = dict(
+            ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            max_abs_err=worst[torch.float32])
+        if where != "group refresh":
+            continue
+        # the chain the indexed entry replaced: gather, relayout, planes
+        pT = p.T.contiguous()
+        K = G * sub
+
+        def chain():
+            candT = tris[idx].reshape(Q, K, 9).permute(2, 1, 0).contiguous()
+            return ck.ericson_candidates_T(pT, candT)
+        candT = tris[idx].reshape(Q, K, 9).permute(2, 1, 0).contiguous()
+        ms_chain = device_ms(chain, iters=10)
+        ms_planes = device_ms(lambda: ck.ericson_candidates_T(pT, candT),
+                              iters=10)
+        qc, dc = chain()
+        q_k, d_k = ck.ericson_candidates_idx(p, tris, idx, sub)
+        check(torch.equal(qc.T, q_k) and torch.equal(dc[0], d_k),
+              "ericson_idx: differs from the gather-relayout-planes chain")
+        print(f"  B1 at the refresh tile, same inputs and bound {b:.4f} ms: "
+              f"indexed entry {ms:.4f} ms; old chain (tris[idx], relayout, "
+              f"plane entry) {ms_chain:.4f} ms, of which the plane entry "
+              f"{ms_planes:.4f} ms")
 
 
 def ericson_launch_split(stats, n_queries):
-    """B1 launches of the main path by tile shape, from the solve's
-    counters: each cache refresh sweeps 8,192-query tiles, each fast-path
-    trial 65,536-query tiles, and the init/final energies 4,096-query
-    2-stage tiles."""
+    """B1 (indexed entry) launches of the main path by tile shape, from the
+    solve's counters: each cache refresh sweeps 8,192-query tiles, each
+    fast-path trial 65,536-query tiles, and the init/final energies
+    4,096-query 2-stage tiles."""
     def tiles(shape):
         return -(-n_queries // ERICSON_SHAPES[shape][0])
 
@@ -281,20 +421,25 @@ def cg_inputs(n, c, dtype, device, seed):
 
     v = {k: t(g.standard_normal((n, c))) for k in ("x", "r", "p", "ap", "z")}
     rz = t(g.random(c) + 0.5)
-    # column 1 frozen (rr_prev <= thresh); column 2 has a zero divisor
-    # (p and r zero there, so pAp = 0 and r.z = 0 next).
-    rr_prev = t(np.array([1.0, 1e-30, 1.0][:c]))
-    thresh = t(np.array([1e-20, 1e-20, 1e-20][:c]))
-    v["p"][:, c - 1] = 0
+    # column 1 frozen (rr_prev <= thresh); the last column has a zero
+    # divisor (p and r zero there, so pAp = 0 and r.z = 0 next).
+    rr_prev = t(np.array([1.0, 1e-30, 1.0, 1.0][:c]))
+    thresh = t(np.full(c, 1e-20))
+    if c >= 3:
+        v["p"][:, c - 1] = 0
     rz_old = rz.clone()
     rz_old[0] = 0
     return v, rz, rz_old, rr_prev, thresh
 
 
-def check_cg(ck, device, record, c=3):
-    """B2/B3 vs twins at n=230,400, c=3 with a frozen column and zero
-    divisors (pAp = 0, rz_old = 0)."""
-    n = MAIN_N
+def check_cg(ck, device, record, n_small):
+    """B2/B3 vs twins with a frozen column and zero divisors (pAp = 0,
+    rz_old = 0): at n=230,400, c=3 and, for B2, at c = 1..4 on the small
+    scene's n, an n that is no multiple of the block size, n=230,400 (p
+    and Ap kept in registers) and n=300,001 (too many rows for that: read
+    again); B2 called twice on the same inputs must give equal bits. Then
+    both timed at n=230,400, c=3."""
+    n, c = MAIN_N, 3
     rtol = {torch.float64: 1e-12, torch.float32: 1e-3}
     worst1 = worst2 = 0.0
     for dtype in (torch.float32, torch.float64):
@@ -321,8 +466,33 @@ def check_cg(ck, device, record, c=3):
                     worst2 = max(worst2, err)
         check(bool(torch.equal(xk[:, 1], v["x"][:, 1])),
               "cg frozen column moved")
+        for nc in (n_small, 70001, MAIN_N, 300001):
+            for cc in (1, 2, 3, 4):
+                v, rz, _, rr_prev, thresh = cg_inputs(nc, cc, dtype, device,
+                                                      nc + cc)
+                outs = []
+                for _ in range(2):
+                    x, r = v["x"].clone(), v["r"].clone()
+                    rr = ck.cg_update1(rz, v["p"], v["ap"], x, r, rr_prev,
+                                       thresh)
+                    outs.append((x, r, rr))
+                x, r = v["x"].clone(), v["r"].clone()
+                rr = ck.cg_update1_plain(rz, v["p"], v["ap"], x, r, rr_prev,
+                                         thresh)
+                check(all(torch.equal(a, b) for a, b in zip(*outs)),
+                      f"cg_update1 n={nc} c={cc} {dtype}: two calls differ")
+                for name, a, b in zip(("x", "r", "rr"), outs[0], (x, r, rr)):
+                    err = float((a - b).abs().max())
+                    check(torch.allclose(a, b, rtol=tol, atol=tol),
+                          f"cg_update1 n={nc} c={cc} {dtype}: {name} err {err}")
+                    if dtype == torch.float32:
+                        worst1 = max(worst1, err)
     v, rz, _, rr_prev, thresh = cg_inputs(n, c, torch.float32, device, 8)
     x, r, p = v["x"], v["r"], v["p"]
+    print(f"  B2 cg_update1: c = 1..4, n = {n_small}, 70001, {MAIN_N}, 300001: "
+          f"matches the twin (f32 max abs err {worst1:.3e}) and repeats "
+          f"bit for bit; grid {ck.cg1_blocks(n, c, x.dtype, x.device)} "
+          f"blocks of {ck.CG1_THREADS} at n={n}, c={c}")
     rz_old = (r * v["z"]).sum(0)     # beta ~ 1: repeated calls stay finite
     ms1, pl1, ms1_e, pl1_e = time_pair(
         lambda: ck.cg_update1(rz, p, v["ap"], x, r, rr_prev, thresh),
@@ -348,12 +518,12 @@ def check_cg(ck, device, record, c=3):
 # Phases 4 and 5: the solve
 # ---------------------------------------------------------------------------
 
-def run_small_solve(device, max_iter=20):
+def run_small_solve(device, n_ref, max_iter=20):
     import functools
     from aa_admm_tpu_torch.apps import wire_mesh_opt as wm
     from aa_admm_tpu_torch.solver.geometry import ALMGeometrySolver
 
-    sub, el, ref_v, ref_f = small_scene()
+    sub, el, ref_v, ref_f = small_scene(n_ref)
     saved = wm.ALMGeometrySolver
     wm.ALMGeometrySolver = functools.partial(ALMGeometrySolver,
                                              dense_threshold=0)
@@ -366,24 +536,32 @@ def run_small_solve(device, max_iter=20):
         wm.ALMGeometrySolver = saved
 
 
-def phase_f64_solve(ck, device="cuda"):
+def phase_f64_solve(ck, n_ref, path, device="cuda"):
+    """The small f64 solve on the GPU and the CPU; every kernel of `path`
+    must have launched. Returns the GPU run's launch counts."""
     ck.reset_launch_counts()
-    s_gpu = run_small_solve(device)
+    s_gpu = run_small_solve(device, n_ref)
     counts = ck.launch_counts()
-    s_cpu = run_small_solve("cpu")
+    s_cpu = run_small_solve("cpu", n_ref)
     fg, fc = np.asarray(s_gpu.function_values), np.asarray(s_cpu.function_values)
     check(len(fg) == len(fc) and len(fg) > 0, "f64 solve: iteration counts differ")
     rel = float(np.max(np.abs(fg - fc) / np.abs(fc)))
     dx = float(np.abs(s_gpu.get_solution() - s_cpu.get_solution()).max())
-    print(f"  f64 GPU vs CPU: {len(fg)} iterations, max rel fv diff {rel:.3e}, "
+    st = s_gpu.stats
+    print(f"  f64 GPU vs CPU, {2 * (n_ref - 1) ** 2}-triangle reference: "
+          f"{len(fg)} iterations, {st['trials']} trials, "
+          f"{st['cp_refreshes']} cache refreshes, max rel fv diff {rel:.3e}, "
           f"max |x diff| {dx:.3e}, rejects gpu {sum(s_gpu.anderson_reset)} "
           f"cpu {sum(s_cpu.anderson_reset)}, launches {counts}")
     check(rel <= 1e-8, f"f64 solve: function values differ by {rel}")
     check(dx <= 1e-8, f"f64 solve: solutions differ by {dx}")
     check(s_gpu.anderson_reset == s_cpu.anderson_reset,
           "f64 solve: reject sequences differ")
-    check(all(v > 0 for v in counts.values()),
-          f"f64 solve: a kernel was not launched: {counts}")
+    check(all(counts[k] > 0 for k in path),
+          f"f64 solve: a kernel of {path} was not launched: {counts}")
+    check(st["cp_refreshes"] < st["trials"],
+          "f64 solve: the cache's fast path never ran")
+    return counts
 
 
 def phase_full_solve(ck, device="cuda", scene=full_scene, max_iter=20):
@@ -433,14 +611,16 @@ def phase_full_solve(ck, device="cuda", scene=full_scene, max_iter=20):
     check(np.isfinite(solver.function_values).all(),
           "full solve: non-finite function values")
     check(e_a.mean() < e_b.mean(), "full solve: mean edge error did not fall")
-    check(all(v > 0 for v in counts.values()),
+    check(all(counts[k] > 0 for k in MAIN_PATH_KERNELS),
           f"full solve: a kernel was not launched: {counts}")
     check(st["cp_refreshes"] >= 1 and st["cg_iters"] > 0,
           "full solve: no cp-cache refresh or no CG iteration")
     split = ericson_launch_split(st, sub.n_verts())
-    print(f"  B1 launches by tile shape: {split}")
-    check(sum(split.values()) == counts["ericson"],
-          f"full solve: B1 launches {counts['ericson']} != {split}")
+    print(f"  B1 (indexed entry) launches by tile shape: {split}")
+    check(sum(split.values()) == counts["ericson_idx"],
+          f"full solve: B1 launches {counts['ericson_idx']} != {split}")
+    check(counts["ericson"] == 0,
+          "full solve: materialised candidates on the subgroup-cache path")
     return counts, solver, split
 
 
@@ -488,6 +668,14 @@ def profile_trials(solver, init_x, n_iter=5, out="result/profile_full.txt"):
     for e in rows:
         print(f"    {dev_us(e) / 1e3 / trials:9.3f} ms/trial  x{e.count:<6d} "
               f"{e.key[:90]}")
+    # the port's own kernels on the solve's real data
+    for e in ka:
+        if str(e.device_type).endswith("CUDA") and any(
+                k in e.key for k in ("ericson_", "cg1_fused", "cg2_update",
+                                     "col_dot_partial")):
+            print(f"    port kernel x{e.count:<5d} "
+                  f"{dev_us(e) / max(e.count, 1) / 1e3:.4f} ms per launch "
+                  f"in the solve: {e.key[:70]}")
 
 
 def main():
@@ -517,14 +705,18 @@ def main():
     phase("2 build", t0)
 
     record = {}
+    dev = torch.device("cuda")
+    n_small = small_scene()[0].n_verts()
     t0 = time.perf_counter()
-    check_ericson(ck, torch.device("cuda"), record)
-    check_cg(ck, torch.device("cuda"), record)
+    check_ericson(ck, dev, record, n_small)
+    check_ericson_idx(ck, dev, record)
+    check_cg(ck, dev, record, n_small)
     phase("3 kernels vs twins", t0)
 
     t0 = time.perf_counter()
-    phase_f64_solve(ck)
-    phase("4 f64 solve GPU vs CPU", t0)
+    phase_f64_solve(ck, SMALL_N_REF, MAIN_PATH_KERNELS)
+    candT_counts = phase_f64_solve(ck, CANDT_N_REF, CANDT_PATH_KERNELS)
+    phase("4 f64 solves GPU vs CPU (subgroup cache; flat cache + candT)", t0)
 
     t0 = time.perf_counter()
     counts, solver, split = phase_full_solve(ck)
@@ -533,15 +725,21 @@ def main():
     profile_trials(solver, solver.system.x0.cpu().numpy())
     phase("6 profile of five full-width iterations", t0)
 
-    # B1 is reported at the tile shape the main path launched most
+    # the indexed B1 entry is reported at the tile shape the main path
+    # launched most; the plane entry at its own path's shape, with the
+    # launches of that path's solve (phase 4, second solve)
     main_shape = max(split, key=split.get)
-    record["ericson"] = record["ericson"][main_shape]
-    print(f"  B1 reported at its {main_shape} shape "
-          f"{ERICSON_SHAPES[main_shape]}")
+    record["ericson_idx"] = record["ericson_idx"][main_shape]
+    counts = dict(counts, ericson=candT_counts["ericson"])
+    print(f"  B1 ericson_idx reported at its {main_shape} shape "
+          f"{ERICSON_SHAPES[main_shape]}; ericson (planes) at "
+          f"{n_small} x 48 with the candT solve's launches")
 
     meta = {
         "ericson": ("aa_admm_tpu_torch/csrc/ericson.cu",
                     "aa_admm_tpu/ops/pallas_kernels.py:47"),
+        "ericson_idx": ("aa_admm_tpu_torch/csrc/ericson.cu",
+                        "aa_admm_tpu/ops/pallas_kernels.py:47"),
         "cg_update1": ("aa_admm_tpu_torch/csrc/cg_update.cu",
                        "aa_admm_tpu/ops/pallas_kernels.py:207"),
         "cg_update2": ("aa_admm_tpu_torch/csrc/cg_update.cu",

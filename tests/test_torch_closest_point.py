@@ -162,3 +162,58 @@ def test_group_cache_matches_jax(sphere_22k):
     assert not refreshed
     np.testing.assert_array_equal(np.asarray(cj2.p0), p)
     _assert_same_points(p2, q_t2, q_j2)
+
+
+def test_sweeps_gather_their_own_candidates(sphere_6k, sphere_22k,
+                                            monkeypatch):
+    """Every exact sweep outside the candT cache goes through B1's indexed
+    entry (no (Q, K, 3, 3) candidate buffer is built by the callers): the
+    2-stage query and the flat cache's fast path with sub = 1, the subgroup
+    refresh with sub = 1 and its fast path with sub = 16 — and the answers
+    stay exact against brute force."""
+    from aa_admm_tpu_torch.ops import cuda_kernels as ck
+    subs = []
+    real = ck.ericson_candidates_idx
+
+    def counted(p, tris, idx, sub=1):
+        subs.append(sub)
+        return real(p, tris, idx, sub=sub)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("materialised candidates on a cached path")
+
+    monkeypatch.setattr(ck, "ericson_candidates_idx", counted)
+    monkeypatch.setattr(ck, "ericson_candidates", forbidden)
+    tri = torch.from_numpy(sphere_6k)
+    p = torch.from_numpy(_near_surface(sphere_6k, 300, 21))
+    q = tcp.closest_point_on_mesh_2stage(p, tri)
+    assert subs == [1]
+    cache = tcp.cp_cache_init(300, 48, torch.float64, "cpu")
+    _, cache, refreshed = tcp.closest_point_cached(p, tri, cache)
+    q2, _, refreshed2 = tcp.closest_point_cached(p, tri, cache)
+    assert refreshed and not refreshed2 and subs == [1, 1]
+    q_b = tcp.closest_point_on_mesh(p, tri)
+    for got in (q, q2):
+        np.testing.assert_allclose(_dist(got, p), _dist(q_b, p), rtol=1e-9,
+                                   atol=1e-11)
+
+    S = 64
+    tp, cent, rad, gc, gr = tcp.build_tri_groups(sphere_22k, group_size=S)
+    G = len(gc)
+    targs = (torch.from_numpy(tp.reshape(G, S, 3, 3)),
+             torch.from_numpy(cent.reshape(G, S, 3)),
+             torch.from_numpy(rad.reshape(G, S)), torch.from_numpy(gc),
+             torch.from_numpy(gr))
+    p = torch.from_numpy(_near_surface(sphere_22k, 300, 23, scale=1.0))
+    cache = tcp.cp_cache_group_init(300, 6, torch.float64, "cpu")
+    subs.clear()
+    q, cache, refreshed = tcp.closest_point_cached_group(p, *targs, cache,
+                                                         fast_tile=128)
+    q2, _, refreshed2 = tcp.closest_point_cached_group(p, *targs, cache,
+                                                       fast_tile=128)
+    assert refreshed and not refreshed2
+    assert subs == [1, 16, 16, 16]          # one refresh tile, 3 fast tiles
+    q_b = tcp.closest_point_on_mesh(p, torch.from_numpy(sphere_22k))
+    for got in (q, q2):
+        np.testing.assert_allclose(_dist(got, p), _dist(q_b, p), rtol=1e-9,
+                                   atol=1e-11)

@@ -117,8 +117,8 @@ def test_optimize_mesh_cg_group_cache_matches_jax(scene, tmp_path,
     assert 1 <= st["cp_refreshes"] < st["trials"]
     assert sum(ts.anderson_reset) > 0
     # CPU tensors: every kernel call went to its twin
-    assert ck.launch_counts() == {"ericson": 0, "cg_update1": 0,
-                                  "cg_update2": 0}
+    assert ck.launch_counts() == {"ericson": 0, "ericson_idx": 0,
+                                  "cg_update1": 0, "cg_update2": 0}
     # host reads per trial: the loop test, the cache test, the AA Gram
     # matrix, and one per CG loop test
     assert st["host_reads"] >= 3 * st["trials"] + st["cg_iters"]

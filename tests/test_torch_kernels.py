@@ -1,8 +1,10 @@
 """Kernels B1-B3 of the PyTorch port (aa_admm_tpu_torch.ops.cuda_kernels):
 their plain twins, run here on CPU tensors, against the JAX package's Pallas
 kernels in interpret mode and against its jnp closest-point path, at the
-shapes and tolerances of tests/test_pallas_kernels.py. The kernels
-themselves run only on a CUDA card (``cuda`` marker)."""
+shapes and tolerances of tests/test_pallas_kernels.py. B1's indexed entry
+(candidates named by index into a triangle table) is held against the JAX
+sweep over the same candidates gathered. The kernels themselves run only
+on a CUDA card (``cuda`` marker)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +12,8 @@ import pytest
 import torch
 
 from aa_admm_tpu.ops import pallas_kernels as pk
+from aa_admm_tpu.ops.closest_point import (
+    _closest_point_candidates as jax_candidates)
 from aa_admm_tpu.ops.closest_point import (
     _closest_point_candidates_all as jax_candidates_all)
 from aa_admm_tpu_torch.ops import cuda_kernels as ck
@@ -76,6 +80,94 @@ def test_ericson_first_minimum_wins():
     q, d = ck.ericson_candidates(p, torch.stack([tri, tri2])[None])
     assert float(d[0]) == 1.0
     np.testing.assert_array_equal(q.numpy(), [[0.0, 0.0, 0.0]])
+
+
+def _expand_idx(idx, sub):
+    """Table rows of each query's candidates: idx[i, k // sub] * sub + k % sub."""
+    return (idx[:, :, None] * sub + np.arange(sub)).reshape(len(idx), -1)
+
+
+def _idx_case(dtype, Q, G, sub, seed):
+    rng = np.random.default_rng(seed)
+    n_runs = 4 * G + 5
+    tris = rng.standard_normal((n_runs * sub, 3, 3)).astype(dtype)
+    p = rng.standard_normal((Q, 3)).astype(dtype)
+    idx = rng.integers(0, n_runs, size=(Q, G))
+    return p, tris, idx
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("Q,G,sub", [(300, 7, 1), (128, 48, 1), (200, 6, 16)])
+def test_ericson_idx_twin_matches_jax(Q, G, sub, dtype):
+    """The indexed entry against the JAX sweep over the same candidates,
+    gathered: sub = 1 (the refresh and 2-stage sweeps) and sub = 16 (the
+    subgroup cache's fast path)."""
+    p, tris, idx = _idx_case(dtype, Q, G, sub, Q + G + sub)
+    q_j, d_j = jax_candidates(jnp.asarray(p),
+                              jnp.asarray(tris[_expand_idx(idx, sub)]))
+    q_t, d_t = ck.ericson_candidates_idx(torch.from_numpy(p),
+                                         torch.from_numpy(tris),
+                                         torch.from_numpy(idx), sub=sub)
+    dtol, qtol = ERICSON_TOL[dtype]
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=dtol,
+                               atol=dtol)
+    np.testing.assert_allclose(q_t.numpy(), np.asarray(q_j), rtol=qtol,
+                               atol=qtol)
+
+
+def _tie_case(dtype, sub, seed=3):
+    """Queries at the origin whose candidates hold a triangle A, nearest at
+    its vertex (0, 0, 1), and its mirror -A, nearest at (0, 0, -1), at
+    several positions k: both lie at squared distance exactly 1 (the
+    mirror negates every intermediate exactly), so the point tells which
+    candidate won. Every other row is a far triangle or a far-away dummy
+    row like build_tri_groups' padding (1e15), which must lose without
+    overflowing. Returns (p, tris, idx, expected q)."""
+    n_runs, G = (64, 48) if sub == 1 else (8, 6)
+    rng = np.random.default_rng(seed)
+    T = n_runs * sub
+    tris = rng.standard_normal((T, 3, 3)) + 50.0
+    tris[T - sub // 2 - 1:] = 1e15                 # dummy tail
+    tri_a = np.asarray([[0.0, 0, 1], [1, 0, 2], [0, 1, 2]])
+    rows_a, rows_b = [1 * sub + sub // 2, 2 * sub], [5 * sub + sub - 1, 3 * sub]
+    tris[rows_a] = tri_a
+    tris[rows_b] = -tri_a
+    idx, want = [], []
+    for perm_seed in range(40):
+        runs = np.random.default_rng(perm_seed).permutation(n_runs)[:G]
+        k = {r: int(np.where(runs == r // sub)[0][0]) * sub + r % sub
+             for r in rows_a + rows_b if r // sub in runs}
+        if not k.keys() & set(rows_a) or not k.keys() & set(rows_b):
+            continue
+        idx.append(runs)
+        want.append([0.0, 0.0, 1.0 if min(k, key=k.get) in rows_a else -1.0])
+    # a duplicated run (sub > 1) or index (sub = 1): A twice, still A
+    dup = np.full(G, n_runs - 1)
+    dup[[1, G - 2]] = rows_a[0] // sub
+    idx.append(dup)
+    want.append([0.0, 0.0, 1.0])
+    return (np.zeros((len(idx), 3), dtype), tris.astype(dtype),
+            np.asarray(idx, np.int64), np.asarray(want, dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("sub", [1, 16])
+def test_ericson_idx_first_minimum_dummies(sub, dtype):
+    """Exact ties go to the lowest k, duplicated candidates are harmless,
+    and 1e15 dummy rows lose with a finite distance — as the JAX sweep
+    (first argmin) has it."""
+    p, tris, idx, want = _tie_case(dtype, sub)
+    q_t, d_t = ck.ericson_candidates_idx(torch.from_numpy(p),
+                                         torch.from_numpy(tris),
+                                         torch.from_numpy(idx), sub=sub)
+    cand = jnp.asarray(tris[_expand_idx(idx, sub)])
+    q_j, _ = jax_candidates(jnp.asarray(p), cand)
+    _, sqd_all = jax_candidates_all(jnp.asarray(p), cand)
+    assert len(want) > 3 and len(set(want[:, 2])) == 2
+    np.testing.assert_array_equal(q_t.numpy(), want)
+    np.testing.assert_array_equal(np.asarray(q_j), want)
+    np.testing.assert_array_equal(d_t.numpy(), np.ones(len(idx)))
+    assert np.isfinite(np.asarray(sqd_all)).all()
 
 
 def _cg_case(dtype, n=1024, c=3, seed=7):
@@ -162,6 +254,46 @@ def test_cg_update_twins_frozen_and_zero_divisor(dtype):
                                rtol=max(tol, 1e-10))
 
 
+def _cg_cols_case(dtype, c, n=1000, seed=13):
+    """c columns: column 1 frozen (c >= 2), column 2 with pAp = 0 (c >= 3)."""
+    v, rz = _cg_case(dtype, n=n, c=c, seed=seed)
+    rr_prev = np.asarray([1.0, 1e-30, 1.0, 1.0][:c], dtype)
+    thresh = np.full(c, 1e-20, dtype)
+    if c >= 3:
+        v["p"][:, 2] = 0.0
+    return v, rz, rr_prev, thresh
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_cg_update1_twin_matches_pallas_columns(c, dtype):
+    """B2's twin at c = 1..4 columns against the Pallas kernel (interpret
+    mode, band layout)."""
+    v, rz, rr_prev, thresh = _cg_cols_case(dtype, c)
+    n = v["x"].shape[0]
+    xb, rb, rr = pk.cg_update1(jnp.asarray(rz), pk.to_band(jnp.asarray(v["p"])),
+                               pk.to_band(jnp.asarray(v["ap"])),
+                               pk.to_band(jnp.asarray(v["x"])),
+                               pk.to_band(jnp.asarray(v["r"])),
+                               rr_prev=jnp.asarray(rr_prev),
+                               thresh=jnp.asarray(thresh))
+    t = {k: torch.from_numpy(a.copy()) for k, a in v.items()}
+    rr_t = ck.cg_update1(torch.from_numpy(rz), t["p"], t["ap"], t["x"],
+                         t["r"], torch.from_numpy(rr_prev),
+                         torch.from_numpy(thresh))
+    tol = CG_TOL[dtype]
+    np.testing.assert_allclose(t["x"].numpy(),
+                               np.asarray(pk.from_band(xb, n, c)),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(t["r"].numpy(),
+                               np.asarray(pk.from_band(rb, n, c)),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(rr_t.numpy(), np.asarray(rr),
+                               rtol=max(tol, 1e-10))
+    if c >= 2:
+        np.testing.assert_array_equal(t["x"][:, 1].numpy(), v["x"][:, 1])
+
+
 def test_wrappers_validate_inputs():
     """Shape, dtype and device checks raise before any launch; a device
     with no kernel raises instead of falling back."""
@@ -172,6 +304,14 @@ def test_wrappers_validate_inputs():
         ck.ericson_candidates_T(torch.zeros((3, 4)), torch.zeros((9, 1, 5)))
     with pytest.raises(ValueError):
         ck.ericson_candidates(p, torch.zeros((4, 2, 3, 3), dtype=torch.float32))
+    tris = torch.zeros((8, 3, 3), dtype=torch.float64)
+    with pytest.raises(ValueError):       # idx must be int64
+        ck.ericson_candidates_idx(p, tris, torch.zeros((4, 2), dtype=torch.int32))
+    with pytest.raises(ValueError):       # one idx row per query
+        ck.ericson_candidates_idx(p, tris, torch.zeros((5, 2), dtype=torch.int64))
+    with pytest.raises(ValueError):       # p and tris share a dtype
+        ck.ericson_candidates_idx(p, tris.float(),
+                                  torch.zeros((4, 2), dtype=torch.int64))
     s = torch.zeros(3, dtype=torch.float64)
     with pytest.raises(ValueError):
         ck.cg_update1(s, p, p[:2], p, p, s, s)
@@ -197,8 +337,11 @@ def test_twins_do_not_count_launches():
     ck.cg_update2(torch.from_numpy(rz), t["r"], t["z"], t["p"], s, s * 0)
     ck.ericson_candidates(t["x"], torch.zeros((64, 2, 3, 3),
                                               dtype=torch.float64))
-    assert ck.launch_counts() == {"ericson": 0, "cg_update1": 0,
-                                  "cg_update2": 0}
+    ck.ericson_candidates_idx(t["x"], torch.zeros((5, 3, 3),
+                                                  dtype=torch.float64),
+                              torch.zeros((64, 2), dtype=torch.int64))
+    assert ck.launch_counts() == {"ericson": 0, "ericson_idx": 0,
+                                  "cg_update1": 0, "cg_update2": 0}
 
 
 @pytest.mark.cuda
@@ -234,4 +377,54 @@ def test_kernels_match_twins_on_card(cuda_device, dtype):
     rz_t = ck.cg_update2_plain(rz, rt, vec["z"], pt, rr_prev, thresh)
     tol = CG_TOL[np.float64 if dtype == torch.float64 else np.float32]
     for a, b in [(xk, xt), (rk, rt), (rr_k, rr_t), (pk_, pt), (rz_k, rz_t)]:
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_ericson_idx_matches_twin_on_card(cuda_device, dtype):
+    """B1's indexed entry on the card against its twin on the same inputs:
+    equal to the last bit (the kernel rounds op by op like the twin), at
+    sub = 1 and 16, on random tables and on exact ties and dummy rows."""
+    def both(p, tris, idx, sub):
+        args = [torch.from_numpy(a).to(cuda_device) for a in (p, tris, idx)]
+        before = ck.launch_counts()["ericson_idx"]
+        q, d = ck.ericson_candidates_idx(*args, sub=sub)
+        assert ck.launch_counts()["ericson_idx"] == before + 1
+        qt, dt = ck.ericson_candidates_idx_plain(*args, sub=sub)
+        torch.testing.assert_close(q, qt, rtol=0, atol=0)
+        torch.testing.assert_close(d, dt, rtol=0, atol=0)
+        return q
+
+    for Q, G, sub in [(300, 7, 1), (8192, 48, 1), (2000, 6, 16)]:
+        both(*_idx_case(dtype, Q, G, sub, Q + G + sub), sub)
+    for sub in (1, 16):
+        p, tris, idx, want = _tie_case(dtype, sub)
+        q = both(p, tris, idx, sub)
+        np.testing.assert_array_equal(q.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n,c", [(1000, 1), (4099, 2), (81, 3), (230400, 3),
+                                 (70001, 4), (300001, 3)])
+def test_cg_update1_on_card_twin_and_repeatable(cuda_device, n, c, dtype):
+    """B2 in one launch against its twin, and bit-equal on a second call
+    with the same inputs (fixed grid, fixed reduction order, no float
+    atomics)."""
+    v, rz, rr_prev, thresh = _cg_cols_case(dtype, c, n=n)
+    dev = {k: torch.from_numpy(a).to(cuda_device) for k, a in v.items()}
+    rz, rr_prev, thresh = (torch.from_numpy(a).to(cuda_device)
+                           for a in (rz, rr_prev, thresh))
+    outs = []
+    for _ in range(2):
+        x, r = dev["x"].clone(), dev["r"].clone()
+        rr = ck.cg_update1(rz, dev["p"], dev["ap"], x, r, rr_prev, thresh)
+        outs.append((x, r, rr))
+    xt, rt = dev["x"].clone(), dev["r"].clone()
+    rr_t = ck.cg_update1_plain(rz, dev["p"], dev["ap"], xt, rt, rr_prev, thresh)
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+    tol = CG_TOL[dtype]
+    for a, b in zip(outs[0], (xt, rt, rr_t)):
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
