@@ -1,8 +1,9 @@
 """Carry state across from the JAX package, given as NumPy arrays.
 
-With these a test can run one ``solve_alm_chunk`` in both packages from the
-same mid-solve state. Inputs are plain NumPy arrays (for example
-``jax.device_get`` of the JAX objects); nothing here imports JAX.
+With these a test can run one ``solve_alm_chunk`` (geometry) or one
+``step_xzu`` (physics) in both packages from the same state. Inputs are plain
+NumPy arrays (for example ``jax.device_get`` of the JAX objects); nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -11,10 +12,12 @@ import numpy as np
 import torch
 
 from .ops import closest_point as cp
-from .ops import constraints
+from .ops import constraints, elements
 from .ops._batchutil import _host_mirror, torch_dtype
 from .solver import anderson
+from .solver.linear import DenseInverseSolver
 from .solver.multigrid import TwoLevelPrecond
+from .solver.physics import PhysicsSystem
 
 
 def _get(obj, name):
@@ -29,27 +32,69 @@ def _tensor(a, device, dtype=None):
     return t.to(device=device, dtype=dtype)
 
 
-def batch_from_numpy(kind, fields: dict, device="cpu"):
-    """A port constraint batch from a JAX batch's fields. `kind` is the class
-    name ("AngleBatch", "EdgeLengthBatch", "ClosenessBatch",
-    "RefSurfaceBatch") or the port class; `fields` maps field names to NumPy
-    arrays (or Python ints for the static fields) and may hold "_host", the
-    batch's host-mirror dict. Integer arrays become int64; None fields and
-    fields the port does not have (the gather-form adjoint tables) are
-    dropped."""
-    cls = getattr(constraints, kind) if isinstance(kind, str) else kind
+def _batch(cls, fields: dict, device):
     names = {f for f in cls.__dataclass_fields__}
     kw = {}
     for name, v in fields.items():
         if name not in names or v is None:
             continue
-        kw[name] = v if isinstance(v, (int, float)) else _tensor(v, device)
+        kw[name] = (v if isinstance(v, (int, float, str))
+                    else _tensor(v, device))
     out = cls(**kw)
     host = fields.get("_host")
     if host is not None:
-        _host_mirror(out, **{k: (np.asarray(v, np.int64) if k == "idx" else v)
+        _host_mirror(out, **{k: (np.asarray(v, np.int64)
+                                 if k in ("idx", "tets") else v)
                              for k, v in host.items()})
     return out
+
+
+def batch_from_numpy(kind, fields: dict, device="cpu"):
+    """A port constraint batch from a JAX batch's fields. `kind` is the class
+    name ("PlaneBatch", "AngleBatch", "EdgeLengthBatch", "ClosenessBatch",
+    "RefSurfaceBatch") or the port class; `fields` maps field names to NumPy
+    arrays (or Python scalars and strings for the static fields) and may
+    hold "_host", the batch's host-mirror dict. Integer arrays become int64;
+    None fields and fields the port does not have (the gather-form adjoint
+    tables) are dropped."""
+    cls = getattr(constraints, kind) if isinstance(kind, str) else kind
+    return _batch(cls, fields, device)
+
+
+def element_batch_from_numpy(kind, fields: dict, device="cpu"):
+    """A port physics element batch ("TetBatch" or "PinBatch", or the port
+    class) from a JAX batch's fields, converted as in batch_from_numpy;
+    a TetBatch's `kind` and `svd_method` are strings."""
+    cls = getattr(elements, kind) if isinstance(kind, str) else kind
+    return _batch(cls, fields, device)
+
+
+def physics_system_from_numpy(fields: dict, device="cpu") -> PhysicsSystem:
+    """The port's PhysicsSystem from a JAX PhysicsSystem's arrays: `masses`,
+    `free_mask`, `free_idx`, `batches` (a sequence of (kind, fields) pairs,
+    as element_batch_from_numpy takes them), `Ainv` (the dense path) or
+    `precond_diag` (the CG path), and the static settings (`n_verts`,
+    `n_free`, `order`, `dt`, `gravity`, `dt2p`, `admm_iters`, `anderson_m`,
+    `accel`, `collect_comb`, `cg_tol`, `cg_max_iters`). The JAX system's
+    wind and element sharding have no counterpart and must be None."""
+    for name in ("wind", "elem_sharding"):
+        if fields.get(name) is not None:
+            raise NotImplementedError(f"{name} is not ported yet")
+    statics = {k: fields[k] for k in (
+        "n_verts", "n_free", "order", "dt", "gravity", "dt2p", "admm_iters",
+        "anderson_m", "accel", "collect_comb", "cg_tol", "cg_max_iters")
+        if k in fields}
+    Ainv, diag = fields.get("Ainv"), fields.get("precond_diag")
+    return PhysicsSystem(
+        masses=_tensor(fields["masses"], device),
+        free_mask=_tensor(fields["free_mask"], device),
+        free_idx=_tensor(fields["free_idx"], device),
+        batches=tuple(element_batch_from_numpy(k, f, device)
+                      for k, f in fields["batches"]),
+        solver=None if Ainv is None else DenseInverseSolver(
+            Ainv=_tensor(Ainv, device)),
+        precond_diag=None if diag is None else _tensor(diag, device),
+        **statics)
 
 
 def two_level_from_numpy(agg, Ac_inv, inv_diag, device="cpu",

@@ -4,6 +4,7 @@
   defaults matching ``admm_anderson_*/src/Solver.hpp:46-67``.
 * ``Parameters`` — geometry option files (whitespace ``key value`` lines,
   ``#`` comments), keys per ``Geometry/Parameters.h:59-90,232-238``.
+* ``Lame`` — physics material parameters.
 
 The port reads no environment switch: ``Settings.dtype`` defaults to float64
 and a caller sets it explicitly.
@@ -157,3 +158,42 @@ class Parameters:
             f"SquareElasticity {int(self.square_elasticity)}\n"
             f"TimeStep {self.time_step}\n"
         )
+
+
+@dataclasses.dataclass
+class Lame:
+    """Material parameters (reference admm_anderson_xzu/src/EnergyTerm.hpp:35-61;
+    JAX core/config.py:180-218).
+
+    mu = k/(2(1+v)), lambda = k*v/((1+v)(1-2v)) from Young's modulus k and
+    Poisson ratio v; bulk modulus = lambda + (2/3) mu.
+    """
+
+    mu: float
+    lam: float
+    limit_min: float = -100.0
+    limit_max: float = 100.0
+
+    @classmethod
+    def from_young_poisson(cls, k: float, v: float,
+                           limit_min: float = -100.0,
+                           limit_max: float = 100.0) -> "Lame":
+        return cls(mu=k / (2.0 * (1.0 + v)),
+                   lam=k * v / ((1.0 + v) * (1.0 - 2.0 * v)),
+                   limit_min=limit_min, limit_max=limit_max)
+
+    @classmethod
+    def rubber(cls) -> "Lame":
+        return cls.from_young_poisson(10000000, 0.499)
+
+    @classmethod
+    def soft_rubber(cls) -> "Lame":
+        return cls.from_young_poisson(10000000, 0.399)
+
+    @classmethod
+    def very_soft_rubber(cls) -> "Lame":
+        return cls.from_young_poisson(1000000, 0.299)
+
+    @property
+    def bulk_modulus(self) -> float:
+        return self.lam + (2.0 / 3.0) * self.mu

@@ -1,5 +1,5 @@
-"""Shared helpers for the frozen struct-of-arrays constraint batches
-(counterpart of aa_admm_tpu/ops/_batchutil.py).
+"""Shared helpers for the frozen struct-of-arrays constraint and element
+batches (counterpart of aa_admm_tpu/ops/_batchutil.py).
 
 Host mirrors: setup-time assembly and the delta-form anchors read f64 NumPy
 copies attached at creation, never the (possibly device-resident, possibly
@@ -23,6 +23,17 @@ def torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return _TORCH_FLOAT[np.dtype(dtype)]
+
+
+def _t(a, dtype=None):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
+
+
+def _scatter_rows(contrib, idx, n_verts):
+    """segment_sum of (R, 3) rows into n_verts bins."""
+    out = torch.zeros((n_verts, contrib.shape[-1]), dtype=contrib.dtype,
+                      device=contrib.device)
+    return out.index_add_(0, idx, contrib)
 
 
 def _host_mirror(obj, **arrays):

@@ -23,11 +23,12 @@ import numpy as np
 import torch
 
 from ._batchutil import (  # noqa: F401 (re-export)
-    _host_mirror, cast_floats, hostarr, torch_dtype)
+    _host_mirror, _scatter_rows, _t, cast_floats, hostarr, torch_dtype)
 from .closest_point import (build_tri_groups, closest_point_cached,
                             closest_point_cached_group, closest_point_on_mesh,
                             closest_point_on_mesh_2stage, cp_cache_group_init,
                             cp_cache_init)
+from .svd3 import eigh3x3
 
 # Above this triangle count, RefSurfaceBatch uses the coarse-to-fine
 # closest-point query (and an in-loop candidate cache) instead of brute force.
@@ -39,15 +40,78 @@ _CP_GROUP_THRESHOLD = 20000
 _CANDT_MAX = 1_000_000
 
 
-def _t(a, dtype=None):
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
+def _pad_rows(rows, pad_val=0):
+    """Variable-length index rows -> ((R, K) int64 padded, (R, K) bool mask)."""
+    k = max(len(r) for r in rows)
+    out = np.full((len(rows), k), pad_val, np.int64)
+    mask = np.zeros((len(rows), k), bool)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r
+        mask[i, : len(r)] = True
+    return out, mask
 
 
-def _scatter_rows(contrib, idx, n_verts):
-    """segment_sum of (R, 3) rows into n_verts bins."""
-    out = torch.zeros((n_verts, contrib.shape[-1]), dtype=contrib.dtype,
-                      device=contrib.device)
-    return out.index_add_(0, idx, contrib)
+@dataclasses.dataclass(frozen=True)
+class PlaneBatch:
+    """Per-face best-fit-plane projection, MEAN_CENTERING transform
+    (PlaneConstraint, Constraint.h:396-414; JAX constraints.py:74-152).
+    Faces padded to the largest valence; padded slots point at vertex 0 and
+    are masked to zero in every transform, scatter and projection."""
+
+    idx: torch.Tensor    # (C, K) int64, padded
+    mask: torch.Tensor   # (C, K) bool
+    count: torch.Tensor  # (C,) float — valence
+    w: torch.Tensor      # (C,)
+
+    @classmethod
+    def create(cls, faces, weight, dtype=np.float64):
+        idx, mask = _pad_rows(faces)
+        C = len(faces)
+        w = np.full(C, np.sqrt(weight), dtype)
+        cnt = mask.sum(1).astype(dtype)
+        out = cls(idx=_t(idx), mask=_t(mask), count=_t(cnt), w=_t(w))
+        return _host_mirror(out, idx=idx, mask=mask, count=cnt, w=w)
+
+    @property
+    def block_shape(self):
+        return tuple(self.idx.shape) + (3,)
+
+    def transform(self, x):
+        m = self.mask[..., None]
+        p = x[self.idx] * m
+        mean = p.sum(1) / self.count[:, None]
+        return (p - mean[:, None, :]) * m
+
+    def transform_host(self, x):
+        """f64 numpy transform (delta-form precomputation of D x0)."""
+        idx, mask = hostarr(self, 'idx'), hostarr(self, 'mask')
+        cnt = hostarr(self, 'count').astype(np.float64)
+        p = np.asarray(x, np.float64)[idx] * mask[..., None]
+        mean = p.sum(1) / cnt[:, None]
+        return (p - mean[:, None, :]) * mask[..., None]
+
+    def scatter(self, t, n_verts):
+        """Adjoint of the masked mean-centering: the centered block scattered
+        to its vertices."""
+        m = self.mask[..., None]
+        tm = t * m
+        mean = tm.sum(1) / self.count[:, None]
+        tc = (tm - mean[:, None, :]) * m
+        return _scatter_rows(tc.reshape(-1, 3), self.idx.reshape(-1), n_verts)
+
+    def project(self, p):
+        """Subtract the best-fit-plane normal component: the normal is the
+        eigenvector of the least eigenvalue of the centered points'
+        covariance (Constraint.h:406-413). argmin takes the first minimum,
+        as the JAX package's does."""
+        cov = (p[..., :, None] * p[..., None, :]).sum(1)     # (C, 3, 3)
+        wvals, V = eigh3x3(cov)
+        nidx = torch.argmin(wvals, dim=-1)
+        normal = torch.gather(V, 2, nidx[:, None, None].expand(-1, 3, 1))[..., 0]
+        nn = torch.linalg.vector_norm(normal, dim=-1, keepdim=True)
+        normal = normal / torch.clamp_min(nn, 1e-300)
+        coef = (normal[:, None, :] * p).sum(-1)
+        return (p - coef[..., None] * normal[:, None, :]) * self.mask[..., None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,6 +376,13 @@ def _local_stiffness(b, scale_w: bool):
     (idx (C,), w2 (C,)) for identity-transform batches."""
     w2 = (hostarr(b, 'w') ** 2) if scale_w else np.ones(len(hostarr(b, 'idx')))
     idx = hostarr(b, 'idx')
+    if isinstance(b, PlaneBatch):
+        # face c's rows: (I - 1 1^T / k) over its k valid slots
+        mask = hostarr(b, 'mask').astype(np.float64)
+        cnt = hostarr(b, 'count')
+        mm = mask[:, :, None] * mask[:, None, :]
+        T = (np.eye(idx.shape[1])[None] - mm / cnt[:, None, None]) * mm
+        return idx, np.einsum("c,cik,cjk->cij", w2, T, T)
     if isinstance(b, AngleBatch):
         G = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
         return idx, np.einsum("c,ir,jr->cij", w2, G, G)

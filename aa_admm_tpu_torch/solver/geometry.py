@@ -30,7 +30,8 @@ from .. import resolve_device
 from ..core.meshio import save_residual_file
 from ..core.timers import MicroTimer
 from ..ops.constraints import (AngleBatch, ClosenessBatch, EdgeLengthBatch,
-                               RefSurfaceBatch, assemble_geometry_node_matrix,
+                               PlaneBatch, RefSurfaceBatch,
+                               assemble_geometry_node_matrix,
                                assemble_geometry_node_matrix_sparse,
                                cast_floats, hostarr, torch_dtype)
 from . import anderson
@@ -345,7 +346,13 @@ def _geometry_node_diag(n_points, hard, soft, rho, reg):
     def add(b, scale_w, out_scale=1.0):
         idx = hostarr(b, 'idx')
         w2 = (hostarr(b, 'w') ** 2) if scale_w else np.ones(len(idx))
-        if isinstance(b, AngleBatch):
+        if isinstance(b, PlaneBatch):
+            # diag of the centering projector: (1 - 1/k) per valid slot
+            cnt = hostarr(b, 'count')
+            contrib = (1.0 - 1.0 / cnt)[:, None] * hostarr(b, 'mask') \
+                * w2[:, None]
+            np.add.at(d, idx, out_scale * contrib)
+        elif isinstance(b, AngleBatch):
             rowsq = np.array([2.0, 1.0, 1.0])
             np.add.at(d, idx, out_scale * w2[:, None] * rowsq[None, :])
         elif isinstance(b, EdgeLengthBatch):

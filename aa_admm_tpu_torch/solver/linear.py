@@ -1,5 +1,7 @@
 """Global-step linear solvers (counterpart of aa_admm_tpu/solver/linear.py).
 
+* ``assemble_node_matrix`` / ``assemble_node_diag`` — the physics system
+  M + dt^2 p D^T W^2 D and its diagonal, assembled on the host in f64.
 * ``DenseInverseSolver`` — the per-coordinate system matrix is
   Cholesky-inverted once on the host in f64; each solve is one matmul
   ``A^-1 @ rhs`` over all coordinate columns.
@@ -23,6 +25,59 @@ import numpy as np
 import torch
 
 from ..ops import cuda_kernels as ck
+from ..ops._batchutil import hostarr
+
+
+def _node_stencil(b):
+    """(idx (E, k), G (E, k, r)) of an element batch's per-coordinate
+    reduction rows (tets: -sum(B) then B's rows), or (idx (E,), None) for
+    identity reductions on a vertex."""
+    if hasattr(b, "Dm_inv"):
+        Dm = hostarr(b, 'Dm_inv').astype(np.float64)              # (E,3,3)
+        G = np.concatenate([-Dm.sum(axis=1, keepdims=True), Dm], axis=1)
+        return hostarr(b, 'tets'), G                               # (E,4,3)
+    return hostarr(b, 'idx'), None
+
+
+def assemble_node_matrix(n_verts: int, batches, dt2p: float = 1.0,
+                         masses: Optional[np.ndarray] = None) -> np.ndarray:
+    """Host-side dense assembly of the per-coordinate system matrix
+    ``M + dt2p * D^T W^2 D`` (n x n over nodes; identical for x/y/z because
+    the reduction acts per coordinate — Solver.cpp:459-470; JAX
+    linear.py:37-71). ``batches``: element batches (TetBatch, PinBatch)."""
+    A = np.zeros((n_verts, n_verts))
+    diag = np.arange(n_verts)
+    if masses is not None:
+        A[diag, diag] += np.asarray(masses)
+    for b in batches:
+        w2 = hostarr(b, 'w').astype(np.float64) ** 2
+        idx, G = _node_stencil(b)
+        if G is None:
+            np.add.at(A, (idx, idx), w2)
+        else:
+            K = np.einsum("e,eir,ejr->eij", w2, G, G)
+            np.add.at(A, (idx[:, :, None], idx[:, None, :]), K)
+    if dt2p != 1.0:
+        if masses is not None:
+            A[diag, diag] -= np.asarray(masses)
+        A *= dt2p
+        if masses is not None:
+            A[diag, diag] += np.asarray(masses)
+    return A
+
+
+def assemble_node_diag(n_verts: int, batches) -> np.ndarray:
+    """Diagonal of D^T W^2 D per node (the Jacobi preconditioner) without
+    the matrix — O(E) host work (JAX linear.py:74-90)."""
+    d = np.zeros(n_verts)
+    for b in batches:
+        w2 = hostarr(b, 'w').astype(np.float64) ** 2
+        idx, G = _node_stencil(b)
+        if G is None:
+            np.add.at(d, idx, w2)
+        else:
+            np.add.at(d, idx, w2[:, None] * (G ** 2).sum(axis=-1))
+    return d
 
 
 def dense_inverse(A_free: np.ndarray, dtype=torch.float64,

@@ -25,7 +25,25 @@ non-zero before the final result line):
   6. a torch.profiler breakdown of the first five iterations of the
      full-width solve (per-kernel device time, device idle share, and the
      port's kernels' device time per launch on the solve's own data; the
-     table goes to result/profile_full.txt).
+     table goes to result/profile_full.txt);
+  7. planarity at costa2k scale: a noisy 48 x 48-face quad grid against the
+     clean height field triangulated to 9,800 triangles through the
+     planarity app's ``optimize_mesh`` (the flat closest-point cache: B1's
+     plane entry on the cached candidates, its indexed entry in the 2-stage
+     queries of the first and last energy): 100 float32
+     iterations on the GPU (the max planarity error must fall), then 20
+     float64 iterations on the GPU and the CPU (function values and reject
+     sequences must agree);
+  8. physics, float64: one non-accelerated step of the published beams
+     scene on the GPU and the CPU (residuals must agree, and the head must
+     match the C++ golden of tests/golden/), ten Anderson-accelerated frames
+     on the GPU (the pins must move with the stretch), a torch.profiler
+     breakdown of ten accelerated iterations, and one
+     accelerated step of the beams built from 48 x 12 x 12 cubes, which
+     takes the CG path.
+
+``--phases 1,2,7`` runs only the listed phases (phase 1 always runs); the
+result lines need every phase.
 
 The last two lines are the kernels' JSON record and the run's result JSON.
 Imports nothing of JAX and nothing of the JAX package.
@@ -34,6 +52,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -57,6 +76,11 @@ MAIN_N = 230400                # CG vector rows at MaleTorso scale
 MAIN_PATH_KERNELS = ("ericson_idx", "cg_update1", "cg_update2")
 CANDT_PATH_KERNELS = ("ericson", "ericson_idx", "cg_update1", "cg_update2")
 SMALL_N_REF, CANDT_N_REF = 102, 60     # 20,402 and 6,962 triangles
+# phase 7: B1's shapes on the planarity scene (2,401 queries, 48 candidates
+# from a 9,800-triangle table); phase 8: the beams' C++ golden
+PLAN_Q, PLAN_K, PLAN_T = 2401, 48, 9800
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden", "beams_step1_residual_no_cpp.txt")
 
 T0 = time.perf_counter()
 
@@ -194,6 +218,20 @@ def full_scene(n_faces=240, n_ref=142):
     return subdivide_and_smooth(mesh), el * 0.5, ref_v, ref_f
 
 
+def planarity_scene(n_faces=48, n_ref=71):
+    """costa2k scale: a noisy 48 x 48-face quad grid (2,401 vertices, 2,304
+    quads; z noise sigma 0.05 of the unit edge) on the height field
+    z = 2 sin(2 pi x / 40) cos(2 pi y / 30), against the clean field
+    triangulated to 2 * 70^2 = 9,800 triangles (flat cache with cached
+    candidates: above 4,096 and at most 20,000 triangles, Q * K <= 1M)."""
+    def field(x, y):
+        return 2.0 * np.sin(2 * np.pi * x / 40.0) * np.cos(2 * np.pi * y / 30.0)
+
+    mesh = quad_grid(n_faces, n_faces, 0.05, field=field, seed=2)
+    ref_v, ref_f = height_field_tris(n_ref, -2.0, n_faces + 2.0, field)
+    return mesh, ref_v, ref_f
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their twins
 # ---------------------------------------------------------------------------
@@ -261,15 +299,17 @@ def ericson_idx_bound(Q, G, sub, T, dtype):
 def check_ericson(ck, device, record, cand_q):
     """B1's plane entry vs twin at the test shapes, degenerate triangles,
     the main path's tile shapes with K = 48 or 96 candidates and its own
-    path's shape (cand_q queries x 48); returns the record at cand_q x 48."""
+    paths' shapes (cand_q queries x 48 in phase 4, PLAN_Q x PLAN_K in phase
+    7); records each of its own paths' shapes with the f32 error measured
+    there."""
     from aa_admm_tpu_torch.ops.closest_point import (
         _closest_point_candidates_all)
     tol = {torch.float64: (1e-12, 1e-12), torch.float32: (2e-6, 1e-5)}
-    worst = 0.0
+    err_at = {}       # f32 max abs error (points, distances) by (Q, K)
     for dtype in (torch.float32, torch.float64):
         dtol, qtol = tol[dtype]
         for Q, K in [(300, 7), (128, 48), (1000, 16), (cand_q, 48),
-                     (MAIN_Q, 48), (MAIN_Q, 96)]:
+                     (PLAN_Q, PLAN_K), (MAIN_Q, 48), (MAIN_Q, 96)]:
             p, cand = ericson_inputs(Q, K, dtype, device, Q + K)
             q_k, d_k = ck.ericson_candidates(p, cand)
             candT = cand.reshape(Q, K, 9).permute(2, 1, 0).contiguous()
@@ -291,7 +331,7 @@ def check_ericson(ck, device, record, cand_q):
             check(float(clear.float().mean()) > 0.99,
                   f"ericson Q={Q} K={K} {dtype}: too many near-ties")
             if dtype == torch.float32:
-                worst = max(worst, ed, eq)
+                err_at[Q, K] = max(ed, eq)
         # zero-area triangles and on-surface queries must not NaN
         p = torch.tensor([[0.0, 0.0, 0.0], [1.0, 2.0, 3.0]], dtype=dtype,
                          device=device)
@@ -308,6 +348,7 @@ def check_ericson(ck, device, record, cand_q):
               "ericson degenerate: mismatch")
     # timing at its own path's shape and at the main path's three tiles
     for where, (Q, K) in {"candT cache": (cand_q, 48),
+                          "planarity candT": (PLAN_Q, PLAN_K),
                           "group refresh tile": (8192, 48),
                           "2-stage tile": (4096, 48),
                           "group fast path tile": (MAIN_Q, 96)}.items():
@@ -320,24 +361,32 @@ def check_ericson(ck, device, record, cand_q):
         n_bytes = 4 * (9 * K * Q + 3 * Q + 4 * Q)
         b, by = bound_ms(n_bytes, ERICSON_FLOPS_PER_PAIR * K * Q,
                          torch.float32)
+        err = f", max abs err vs twin {err_at[Q, K]:.3e}" if (
+            Q, K) in err_at else ""
         print(f"  B1 ericson (planes) f32 {where} Q={Q} K={K} lanes "
               f"{ck.ericson_lanes(Q, K)}: kernel {ms:.4f} ms, twin "
               f"{plain:.4f} ms (device, CUDA graph); per eager call "
               f"{ms_e:.4f} / {plain_e:.4f} ms; bound {b:.4f} ms ({by}, "
-              f"{n_bytes / 1e9:.3f} GB)")
-        if where == "candT cache":
-            record["ericson"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
-                                     bound_by=by, max_abs_err=worst)
+              f"{n_bytes / 1e9:.3f} GB){err}")
+        if where in ("candT cache", "planarity candT"):
+            record["ericson" if where == "candT cache"
+                   else "ericson_planarity"] = dict(
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                max_abs_err=err_at[Q, K])
 
 
 def check_ericson_idx(ck, device, record):
     """B1's indexed entry vs its twin, bit for bit at f32, at the CPU
     tests' shapes, the main path's three tiles (over a 39,808-row table),
-    exact ties and dummy rows; then its time at each main-path tile beside
-    the twin's and, at the refresh tile, beside the chain it replaced."""
+    the planarity scene's 2-stage shape (over a 9,800-row table), exact ties
+    and dummy rows; then its time at each of those path shapes beside the
+    twin's and, at the refresh tile, beside the chain it replaced. Each
+    shape is recorded with the f32 error measured there."""
     worst = {torch.float32: 0.0, torch.float64: 0.0}
+    err_at = {}       # f32 max abs error by (Q, G, sub, T)
     cases = [(300, 7, 1, None), (128, 48, 1, None), (200, 6, 16, None)]
     cases += [(Q, G, sub, MAIN_T) for Q, G, sub in ERICSON_SHAPES.values()]
+    cases += [(PLAN_Q, PLAN_K, 1, PLAN_T)]
     for dtype in (torch.float32, torch.float64):
         for Q, G, sub, T in cases:
             p, tris, idx = ericson_idx_inputs(Q, G, sub, dtype, device,
@@ -347,6 +396,8 @@ def check_ericson_idx(ck, device, record):
             err = max(float((q_k - q_t).abs().max()),
                       float((d_k - d_t).abs().max()))
             worst[dtype] = max(worst[dtype], err)
+            if dtype == torch.float32:
+                err_at[Q, G, sub, T] = err
             check(err <= (0.0 if dtype == torch.float32 else 1e-12),
                   f"ericson_idx Q={Q} G={G} sub={sub} {dtype}: err {err}")
         for sub in (1, 16):
@@ -360,21 +411,24 @@ def check_ericson_idx(ck, device, record):
           f"{worst[torch.float32]:.3e}, f64 {worst[torch.float64]:.3e}; "
           f"exact ties, duplicates and 1e15 dummies resolved as argmin")
     record["ericson_idx"] = {}
-    for where, (Q, G, sub) in ERICSON_SHAPES.items():
+    shapes = dict(ERICSON_SHAPES, **{"planarity 2-stage": (PLAN_Q, PLAN_K, 1)})
+    for where, (Q, G, sub) in shapes.items():
+        T = PLAN_T if where == "planarity 2-stage" else MAIN_T
         p, tris, idx = ericson_idx_inputs(Q, G, sub, torch.float32, device, 5,
-                                          MAIN_T)
+                                          T)
         ms, plain, ms_e, plain_e = time_pair(
             lambda: ck.ericson_candidates_idx(p, tris, idx, sub),
             lambda: ck.ericson_candidates_idx_plain(p, tris, idx, sub),
             iters=10)
-        b, by = ericson_idx_bound(Q, G, sub, MAIN_T, torch.float32)
+        b, by = ericson_idx_bound(Q, G, sub, T, torch.float32)
         print(f"  B1 ericson_idx f32 {where} Q={Q} G={G} sub={sub} lanes "
               f"{ck.ericson_lanes(Q, G * sub)}: kernel {ms:.4f} ms, twin "
               f"{plain:.4f} ms (device, CUDA graph); per eager call "
-              f"{ms_e:.4f} / {plain_e:.4f} ms; bound {b:.4f} ms ({by})")
+              f"{ms_e:.4f} / {plain_e:.4f} ms; bound {b:.4f} ms ({by}); max "
+              f"abs err vs twin {err_at[Q, G, sub, T]:.3e}")
         record["ericson_idx"][where] = dict(
             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            max_abs_err=worst[torch.float32])
+            max_abs_err=err_at[Q, G, sub, T])
         if where != "group refresh":
             continue
         # the chain the indexed entry replaced: gather, relayout, planes
@@ -678,13 +732,236 @@ def profile_trials(solver, init_x, n_iter=5, out="result/profile_full.txt"):
                   f"in the solve: {e.key[:70]}")
 
 
-def main():
+# ---------------------------------------------------------------------------
+# Phase 7: planarity at costa2k scale
+# ---------------------------------------------------------------------------
+
+def run_planarity(ck, device, dtype, max_iter):
+    """optimize_mesh of the planarity app with its defaults (penalty 1e5,
+    closeness 1, relative Laplacian 0.1) and AndersonM 5; returns (solver,
+    launch counts, seconds)."""
+    from aa_admm_tpu_torch.apps import planarity_opt as po
+    mesh, ref_v, ref_f = planarity_scene()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    solver = po.optimize_mesh(mesh, ref_v, ref_f, max_iter, 5, dtype=dtype,
+                              device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return solver, ck.launch_counts(), time.perf_counter() - t0
+
+
+def phase_planarity(ck):
+    """The f32 run on the GPU (quality), then f64 on the GPU against the
+    CPU (parity). Returns the f32 run's launch counts."""
+    from aa_admm_tpu_torch.apps.planarity_opt import check_planarity_error
+    mesh, ref_v, ref_f = planarity_scene()
+    print(f"  scene: {mesh.n_verts()} vertices, {len(mesh.faces)} quads, "
+          f"reference {len(ref_f)} triangles", flush=True)
+    solver, counts, secs = run_planarity(ck, "cuda", np.float32, 100)
+    st = solver.stats
+    n_it = len(solver.function_values)
+    out = solver.get_solution()
+    pl_b, _ = check_planarity_error(mesh)
+    pl_a, _ = check_planarity_error(mesh, out)
+    print(f"  f32 GPU, 100 iterations: {secs:.2f} s, setup_ADMM "
+          f"{solver.setup_s:.2f} s, solve {st['solve_s']:.3f} s, "
+          f"{st['solve_s'] / max(n_it, 1) * 1e3:.2f} ms/iteration, {n_it} "
+          f"accepted of {st['trials']} trials, {sum(solver.anderson_reset)} "
+          f"rejects, {st['cp_refreshes']} cp-cache refreshes, "
+          f"{st['host_reads'] / max(n_it, 1):.2f} host reads/iteration, "
+          f"launches {counts}")
+    print(f"  planarity error max {pl_b.max():.4e} -> {pl_a.max():.4e}, mean "
+          f"{pl_b.mean():.4e} -> {pl_a.mean():.4e}")
+    check(np.isfinite(out).all() and out.shape == mesh.verts.shape,
+          "planarity f32: non-finite or misshapen solution")
+    check(np.isfinite(solver.function_values).all(),
+          "planarity f32: non-finite function values")
+    check(np.isfinite(pl_a).all() and pl_a.max() < pl_b.max(),
+          "planarity f32: the max planarity error did not fall")
+    check(counts["ericson"] > 0 and counts["ericson_idx"] > 0,
+          f"planarity f32: a B1 entry was not launched: {counts}")
+
+    s_gpu, c64, secs_g = run_planarity(ck, "cuda", np.float64, 20)
+    s_cpu, _, secs_c = run_planarity(ck, "cpu", np.float64, 20)
+    fg = np.asarray(s_gpu.function_values)
+    fc = np.asarray(s_cpu.function_values)
+    check(len(fg) == len(fc) and len(fg) > 0,
+          "planarity f64: iteration counts differ")
+    rel = float(np.max(np.abs(fg - fc) / np.abs(fc)))
+    dx = float(np.abs(s_gpu.get_solution() - s_cpu.get_solution()).max())
+    print(f"  f64 GPU vs CPU, 20 iterations: GPU {secs_g:.2f} s "
+          f"({s_gpu.stats['solve_s'] / len(fg) * 1e3:.2f} ms/iteration), CPU "
+          f"{secs_c:.2f} s; max rel fv diff {rel:.3e}, max |x diff| "
+          f"{dx:.3e}, rejects gpu {sum(s_gpu.anderson_reset)} cpu "
+          f"{sum(s_cpu.anderson_reset)}, GPU launches {c64}")
+    check(rel <= 1e-8, f"planarity f64: function values differ by {rel}")
+    check(s_gpu.anderson_reset == s_cpu.anderson_reset,
+          "planarity f64: reject sequences differ")
+    check(c64["ericson"] > 0 and c64["ericson_idx"] > 0,
+          f"planarity f64: a B1 entry was not launched: {c64}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: physics (xzu, Anderson on z)
+# ---------------------------------------------------------------------------
+
+def beams_settings(accel, iters=100):
+    from aa_admm_tpu_torch.core.config import AccelType, Settings
+    s = Settings()
+    s.admm_iters = iters
+    s.verbose = 0
+    if accel:
+        s.acceleration_type = AccelType.ANDERSON
+        s.anderson_m = 5
+    return s
+
+
+def beams_noacc_step(device):
+    from aa_admm_tpu_torch.apps import beams
+    s = beams_settings(False)
+    solver, stretch = beams.build_scene(s, device=device)
+    stretch(s.timestep_s)
+    t0 = time.perf_counter()
+    tr = solver.step()
+    secs = time.perf_counter() - t0
+    return (tr.prim.cpu().numpy(), tr.comb.cpu().numpy(),
+            tr.reject.cpu().numpy(), solver.x, secs)
+
+
+def profile_beams(solver, n_iter=10, out="result/profile_beams.txt"):
+    """torch.profiler over one accelerated beams step cut to n_iter ADMM
+    iterations (the same system): device busy and idle share, and the
+    launches per iteration."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from aa_admm_tpu_torch.solver import physics as ph
+    system = dataclasses.replace(solver.system, admm_iters=n_iter)
+    x, v, pp = solver._x_dev, solver._v_dev, solver._pin_pos_dev()
+    ph.step_xzu(system, x, v, pp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ph.step_xzu(system, x, v, pp)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    dev = [e for e in ka if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(dev_us(e) for e in dev) / 1e3
+    launches = sum(e.count for e in dev)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=25))
+    print(f"  profile, {n_iter} accelerated iterations (setup included): "
+          f"wall {wall_ms:.1f} ms (profiler on), device busy {busy_ms:.2f} "
+          f"ms, device idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{launches / n_iter:.0f} device launches per iteration")
+
+
+def phase_physics(ck):
+    from aa_admm_tpu_torch.apps import beams
+    ck.reset_launch_counts()
+    # the published scene, one non-accelerated step: GPU against CPU, and
+    # the head against the C++ golden
+    pg, cg, rg, xg, sg = beams_noacc_step("cuda")
+    pc, cc, rc, xc, sc = beams_noacc_step("cpu")
+    cpp = np.loadtxt(GOLDEN)
+    head = float(max(np.max(np.abs(pg[:25] - cpp[:25, 1]) / cpp[:25, 1]),
+                     np.max(np.abs(cg[:25] - cpp[:25, 2]) / cpp[:25, 2])))
+    dprim = float(np.max(np.abs(pg - pc) / np.abs(pc)))
+    dcomb = float(np.max(np.abs(cg - cc) / np.abs(cc)))
+    print(f"  beams (624 vertices, 1,620 tets, dense path), one "
+          f"non-accelerated step of 100 iterations: GPU {sg * 1e3:.1f} ms, "
+          f"CPU {sc * 1e3:.1f} ms; GPU vs CPU max rel prim {dprim:.3e}, comb "
+          f"{dcomb:.3e}, max |x diff| {np.abs(xg - xc).max():.3e}; first 25 "
+          f"iterations vs the C++ golden max rel {head:.3e}")
+    check(np.isfinite(pg).all() and np.isfinite(cg).all(),
+          "beams: non-finite residuals")
+    check(np.allclose(pg, pc, rtol=1e-8, atol=1e-9)
+          and np.allclose(cg, cc, rtol=1e-8, atol=1e-9),
+          f"beams: GPU and CPU residuals differ (prim {dprim}, comb {dcomb})")
+    check(np.array_equal(rg, rc), "beams: reject sequences differ")
+    check(np.allclose(xg, xc, rtol=1e-8, atol=1e-9),
+          "beams: GPU and CPU positions differ")
+    check(head < 1e-5, f"beams: the head differs from the C++ golden by {head}")
+
+    # ten Anderson-accelerated frames on the GPU
+    frames = 10
+    s = beams_settings(True)
+    solver, stretch = beams.build_scene(s, device="cuda")
+    x_orig = np.concatenate(solver.verts)
+    pins = sorted(solver.pins)
+    for _ in range(frames):
+        stretch(s.timestep_s)
+        solver.step()
+    solver.flush_traces()
+    ms = np.asarray(solver.step_ms)
+    n_it = len(solver.step_prim)
+    moved = (solver.x[pins, 0] - x_orig[pins, 0]) * np.sign(x_orig[pins, 0])
+    print(f"  beams -a 1 -am 5, {frames} frames on the GPU: "
+          f"{ms.mean():.1f} ms/step (first {ms[0]:.1f}, median "
+          f"{np.median(ms):.1f}), {ms.sum() / n_it:.2f} ms per ADMM iteration "
+          f"({n_it} recorded), {sum(solver.step_reject) / frames:.1f} "
+          f"rejects/step, {solver.stats['host_reads'] / frames:.0f} host "
+          f"reads/step")
+    check(np.isfinite(solver.x).all(), "beams AA: non-finite positions")
+    # build_scene places the pins once, then each frame moves them by dt
+    want = (frames + 1) * s.timestep_s
+    check(np.allclose(moved, want, rtol=1e-9, atol=1e-12),
+          f"beams AA: pins moved {moved.min()}..{moved.max()}, not {want}")
+    profile_beams(solver)
+
+    # the same beams from 48 x 12 x 12 cubes: the CG path
+    s = beams_settings(True)
+    t0 = time.perf_counter()
+    big, stretch = beams.build_scene(s, device="cuda", cubes=(48, 12, 12))
+    setup = time.perf_counter() - t0
+    sysm = big.system
+    check(sysm.solver is None and sysm.precond_diag is not None,
+          "beams CG size: initialize did not take the CG path")
+    stretch(s.timestep_s)
+    tr = big.step()
+    prim = tr.prim.cpu().numpy()
+    valid = prim[~np.isnan(prim)]
+    n_tets = sum(int(b.tets.shape[0]) for b in sysm.batches)
+    print(f"  beams 48x12x12 ({sysm.n_verts} vertices, {n_tets} tets, "
+          f"{sysm.n_free} free, CG path): setup {setup:.2f} s, one "
+          f"accelerated step {big.step_ms[-1]:.1f} ms ({len(valid)} "
+          f"iterations, {big.step_ms[-1] / max(len(valid), 1):.1f} "
+          f"ms/iteration), {big.stats['cg_iters']} CG iterations, "
+          f"{big.stats['host_reads']} host reads, "
+          f"{int(tr.reject.sum())} rejects, prim {valid[0]:.4e} -> "
+          f"{valid[-1]:.4e}")
+    check(np.isfinite(valid).all() and len(valid) > 0,
+          "beams CG size: non-finite residuals")
+    check(valid[-1] < valid[0], "beams CG size: the primal residual did "
+          "not fall within the step")
+    check(np.isfinite(big.x).all(), "beams CG size: non-finite positions")
+    counts = ck.launch_counts()
+    print(f"  kernel launches in phase 8: {counts} (the physics path runs "
+          f"none of the port's kernels)")
+
+
+def main(argv):
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from aa_admm_tpu_torch.ops import cuda_kernels as ck
+    want = set(range(1, 9))
+    if argv[:1] == ["--phases"] and len(argv) == 2:
+        want = {1} | {int(a) for a in argv[1].split(",")}
+    elif argv:
+        print("usage: python3 chip_smoke.py [--phases 2,3,...]",
+              file=sys.stderr)
+        return 1
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -696,44 +973,78 @@ def main():
           f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
     phase("1 card", t0)
 
-    t0 = time.perf_counter()
-    logs = ck.build_all(verbose=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  nvcc {name}: {line.strip()}")
-    phase("2 build", t0)
+    if 2 in want:
+        t0 = time.perf_counter()
+        logs = ck.build_all(verbose=True)
+        for name, log in logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line or "error" in line:
+                    print(f"  nvcc {name}: {line.strip()}")
+        phase("2 build", t0)
 
     record = {}
     dev = torch.device("cuda")
     n_small = small_scene()[0].n_verts()
-    t0 = time.perf_counter()
-    check_ericson(ck, dev, record, n_small)
-    check_ericson_idx(ck, dev, record)
-    check_cg(ck, dev, record, n_small)
-    phase("3 kernels vs twins", t0)
+    if 3 in want:
+        t0 = time.perf_counter()
+        check_ericson(ck, dev, record, n_small)
+        check_ericson_idx(ck, dev, record)
+        check_cg(ck, dev, record, n_small)
+        phase("3 kernels vs twins", t0)
 
-    t0 = time.perf_counter()
-    phase_f64_solve(ck, SMALL_N_REF, MAIN_PATH_KERNELS)
-    candT_counts = phase_f64_solve(ck, CANDT_N_REF, CANDT_PATH_KERNELS)
-    phase("4 f64 solves GPU vs CPU (subgroup cache; flat cache + candT)", t0)
+    if 4 in want:
+        t0 = time.perf_counter()
+        phase_f64_solve(ck, SMALL_N_REF, MAIN_PATH_KERNELS)
+        candT_counts = phase_f64_solve(ck, CANDT_N_REF, CANDT_PATH_KERNELS)
+        phase("4 f64 solves GPU vs CPU (subgroup cache; flat cache + candT)",
+              t0)
 
-    t0 = time.perf_counter()
-    counts, solver, split = phase_full_solve(ck)
-    phase("5 full-width f32 solve", t0)
-    t0 = time.perf_counter()
-    profile_trials(solver, solver.system.x0.cpu().numpy())
-    phase("6 profile of five full-width iterations", t0)
+    if 5 in want:
+        t0 = time.perf_counter()
+        counts, solver, split = phase_full_solve(ck)
+        phase("5 full-width f32 solve", t0)
+    if 6 in want and 5 in want:
+        t0 = time.perf_counter()
+        profile_trials(solver, solver.system.x0.cpu().numpy())
+        phase("6 profile of five full-width iterations", t0)
 
-    # the indexed B1 entry is reported at the tile shape the main path
-    # launched most; the plane entry at its own path's shape, with the
-    # launches of that path's solve (phase 4, second solve)
+    if 7 in want:
+        t0 = time.perf_counter()
+        plan_counts = phase_planarity(ck)
+        phase("7 planarity at costa2k scale (f32; f64 GPU vs CPU)", t0)
+
+    if 8 in want:
+        t0 = time.perf_counter()
+        phase_physics(ck)
+        phase("8 physics: beams (GPU vs CPU, golden, AA frames, CG size)",
+              t0)
+
+    if want != set(range(1, 9)):
+        print(f"  total {time.perf_counter() - T0:.1f} s; phases "
+              f"{sorted(want)} only, so no result lines")
+        return 3
+
+    # Each B1 entry is reported at the shape its path launched most: the
+    # indexed entry at the full-width solve's (phase 5) tile unless phase 7
+    # launched it more often; the plane entry at the planarity scene's
+    # shape (phase 7) when that launched it more than phase 4's candT solve.
     main_shape = max(split, key=split.get)
-    record["ericson_idx"] = record["ericson_idx"][main_shape]
-    counts = dict(counts, ericson=candT_counts["ericson"])
-    print(f"  B1 ericson_idx reported at its {main_shape} shape "
-          f"{ERICSON_SHAPES[main_shape]}; ericson (planes) at "
-          f"{n_small} x 48 with the candT solve's launches")
+    if plan_counts["ericson_idx"] > split[main_shape]:
+        idx_at, idx_launches = "planarity 2-stage", plan_counts["ericson_idx"]
+    else:
+        idx_at, idx_launches = main_shape, counts["ericson_idx"]
+    record["ericson_idx"] = record["ericson_idx"][idx_at]
+    if plan_counts["ericson"] > candT_counts["ericson"]:
+        record["ericson"] = record["ericson_planarity"]
+        pl_at, pl_launches = f"{PLAN_Q} x {PLAN_K} (phase 7)", \
+            plan_counts["ericson"]
+    else:
+        pl_at, pl_launches = f"{n_small} x 48 (phase 4)", \
+            candT_counts["ericson"]
+    counts = dict(counts, ericson=pl_launches, ericson_idx=idx_launches)
+    print(f"  B1 ericson_idx reported at its {idx_at} shape "
+          f"({idx_launches} launches); ericson (planes) at {pl_at} "
+          f"({pl_launches} launches)")
 
     meta = {
         "ericson": ("aa_admm_tpu_torch/csrc/ericson.cu",
@@ -763,7 +1074,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         rc = 2
