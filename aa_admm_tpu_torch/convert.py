@@ -1,12 +1,16 @@
 """Carry state across from the JAX package, given as NumPy arrays.
 
 With these a test can run one ``solve_alm_chunk`` (geometry) or one
-``step_xzu`` (physics) in both packages from the same state. Inputs are plain
-NumPy arrays (for example ``jax.device_get`` of the JAX objects); nothing here
-imports JAX.
+``step_xzu``/``step_zxu`` (physics) in both packages from the same state.
+Inputs are plain NumPy arrays (for example ``jax.device_get`` of the JAX
+objects; a nested object — a collision batch's scene and mesh obstacles, the
+wind — may be given as such an object or as a dict of its fields); nothing
+here imports JAX.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -14,10 +18,12 @@ import torch
 from .ops import closest_point as cp
 from .ops import constraints, elements
 from .ops._batchutil import _host_mirror, torch_dtype
+from .ops.collider import TetMeshSdf
+from .ops.sdf import SdfScene
 from .solver import anderson
 from .solver.linear import DenseInverseSolver
 from .solver.multigrid import TwoLevelPrecond
-from .solver.physics import PhysicsSystem
+from .solver.physics import PhysicsSystem, WindForce
 
 
 def _get(obj, name):
@@ -32,19 +38,35 @@ def _tensor(a, device, dtype=None):
     return t.to(device=device, dtype=dtype)
 
 
+def _nested(cls, obj, device):
+    """A port dataclass of tensors (and scalars) from an object or dict
+    holding its fields."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = _get(obj, f.name)
+        kw[f.name] = (v if isinstance(v, (int, float, str))
+                      else _tensor(v, device))
+    return cls(**kw)
+
+
 def _batch(cls, fields: dict, device):
     names = {f for f in cls.__dataclass_fields__}
     kw = {}
     for name, v in fields.items():
         if name not in names or v is None:
             continue
-        kw[name] = (v if isinstance(v, (int, float, str))
-                    else _tensor(v, device))
+        if name == "scene":
+            kw[name] = _nested(SdfScene, v, device)
+        elif name == "mesh_sdfs":
+            kw[name] = tuple(_nested(TetMeshSdf, m, device) for m in v)
+        else:
+            kw[name] = (v if isinstance(v, (int, float, str))
+                        else _tensor(v, device))
     out = cls(**kw)
     host = fields.get("_host")
     if host is not None:
         _host_mirror(out, **{k: (np.asarray(v, np.int64)
-                                 if k in ("idx", "tets") else v)
+                                 if k in ("idx", "tets", "tris") else v)
                              for k, v in host.items()})
     return out
 
@@ -62,9 +84,12 @@ def batch_from_numpy(kind, fields: dict, device="cpu"):
 
 
 def element_batch_from_numpy(kind, fields: dict, device="cpu"):
-    """A port physics element batch ("TetBatch" or "PinBatch", or the port
-    class) from a JAX batch's fields, converted as in batch_from_numpy;
-    a TetBatch's `kind` and `svd_method` are strings."""
+    """A port physics element batch ("TetBatch", "TriBatch", "PinBatch",
+    "CollisionBatch" or "SelfCollisionBatch", or the port class) from a JAX
+    batch's fields, converted as in batch_from_numpy; a TetBatch's `kind`
+    and `svd_method` and a TriBatch's `variant` are strings, a
+    CollisionBatch's `scene` an SdfScene's fields and its `mesh_sdfs` a
+    sequence of TetMeshSdf fields (objects or dicts)."""
     cls = getattr(elements, kind) if isinstance(kind, str) else kind
     return _batch(cls, fields, device)
 
@@ -75,11 +100,12 @@ def physics_system_from_numpy(fields: dict, device="cpu") -> PhysicsSystem:
     as element_batch_from_numpy takes them), `Ainv` (the dense path) or
     `precond_diag` (the CG path), and the static settings (`n_verts`,
     `n_free`, `order`, `dt`, `gravity`, `dt2p`, `admm_iters`, `anderson_m`,
-    `accel`, `collect_comb`, `cg_tol`, `cg_max_iters`). The JAX system's
-    wind and element sharding have no counterpart and must be None."""
-    for name in ("wind", "elem_sharding"):
-        if fields.get(name) is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
+    `accel`, `collect_comb`, `cg_tol`, `cg_max_iters`) and `wind` (None, or
+    a WindForce's fields: `faces`, `direction`, `alpha_n`, `mode`). The JAX
+    system's element sharding has no counterpart and must be None."""
+    if fields.get("elem_sharding") is not None:
+        raise NotImplementedError("elem_sharding is not ported yet")
+    wind = fields.get("wind")
     statics = {k: fields[k] for k in (
         "n_verts", "n_free", "order", "dt", "gravity", "dt2p", "admm_iters",
         "anderson_m", "accel", "collect_comb", "cg_tol", "cg_max_iters")
@@ -94,6 +120,7 @@ def physics_system_from_numpy(fields: dict, device="cpu") -> PhysicsSystem:
         solver=None if Ainv is None else DenseInverseSolver(
             Ainv=_tensor(Ainv, device)),
         precond_diag=None if diag is None else _tensor(diag, device),
+        wind=None if wind is None else _nested(WindForce, wind, device),
         **statics)
 
 

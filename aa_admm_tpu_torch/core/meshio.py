@@ -1,8 +1,10 @@
-"""Mesh IO for the geometry apps (counterpart of aa_admm_tpu/core/meshio.py,
-NumPy parsers only; the native ctypes loader is not part of the port yet).
+"""Mesh IO: Wavefront OBJ and TetGen .ele/.node (counterpart of
+aa_admm_tpu/core/meshio.py, NumPy parsers only; the native ctypes loader is
+not part of the port yet).
 
-Behavioral equivalents of mclscene MeshIO (``MCL/MeshIO.hpp`` ``load_obj``:55)
-and the subset of OpenMesh OBJ IO used by the geometry apps.
+Behavioral equivalents of mclscene MeshIO (``MCL/MeshIO.hpp`` ``load_obj``:55,
+``load_elenode``:180, ``save_elenode``) and the subset of OpenMesh OBJ IO used
+by the geometry apps.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import dataclasses
 import os
 
 import numpy as np
+
+from .factory import TetMeshData
 
 
 @dataclasses.dataclass
@@ -65,6 +69,43 @@ def save_obj(path: str, verts: np.ndarray, faces) -> None:
             f.write("v %.16g %.16g %.16g\n" % (v[0], v[1], v[2]))
         for face in faces:
             f.write("f " + " ".join(str(int(i) + 1) for i in face) + "\n")
+
+
+def load_elenode(basename: str) -> TetMeshData:
+    """TetGen pair loader (mclscene meshio::load_elenode, MeshIO.hpp:180-...).
+
+    ``basename.ele``: header '<n_tets> ...', rows 'id v0 v1 v2 v3'.
+    ``basename.node``: header '<n_verts> ...', rows 'id x y z'.
+    Indices may start at 0 or 1; detected and normalized.
+    """
+    def read_rows(path, ncols):
+        with open(path, "r") as f:
+            header = f.readline().split()
+            n = int(header[0])
+            rows = np.zeros((n, ncols + 1))
+            for i in range(n):
+                parts = f.readline().split()
+                rows[i] = [float(p) for p in parts[: ncols + 1]]
+        return rows
+
+    ele = read_rows(basename + ".ele", 4)
+    node = read_rows(basename + ".node", 3)
+    tets = ele[:, 1:].astype(np.int64)
+    if tets.min() == 1:
+        tets = tets - 1
+    verts = node[:, 1:]
+    return TetMeshData(verts=verts.astype(np.float64), tets=tets.astype(np.int32))
+
+
+def save_elenode(basename: str, mesh: TetMeshData) -> None:
+    with open(basename + ".ele", "w") as f:
+        f.write(f"{len(mesh.tets)} 4 0\n")
+        for i, t in enumerate(mesh.tets):
+            f.write(f"{i} {t[0]} {t[1]} {t[2]} {t[3]}\n")
+    with open(basename + ".node", "w") as f:
+        f.write(f"{len(mesh.verts)} 3 0 0\n")
+        for i, v in enumerate(mesh.verts):
+            f.write("%d %.16g %.16g %.16g\n" % (i, v[0], v[1], v[2]))
 
 
 def save_residual_file(path: str, times, prim, comb=None, reject=None) -> None:

@@ -51,19 +51,34 @@ def hostarr(b, name):
     return getattr(b, name).detach().cpu().numpy()
 
 
+def _cast(v, tdt, device):
+    if isinstance(v, torch.Tensor):
+        dt = tdt if (tdt is not None and v.is_floating_point()) else v.dtype
+        if v.dtype != dt or (device is not None
+                             and v.device != torch.device(device)):
+            return v.to(device=device, dtype=dt)
+        return v
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return cast_floats(v, tdt, device)
+    if isinstance(v, tuple):
+        out = tuple(_cast(a, tdt, device) for a in v)
+        return v if all(a is b for a, b in zip(out, v)) else out
+    return v
+
+
 def cast_floats(batch, dtype, device=None):
     """Copy of a frozen batch with every floating tensor field cast to
-    `dtype` and every tensor field moved to `device` (None keeps it). The
-    f64 `_host` mirrors are carried over unchanged."""
-    tdt = torch_dtype(dtype)
+    `dtype` (None keeps each field's) and every tensor field moved to
+    `device` (None keeps it), through nested frozen dataclasses and tuples
+    of them (a collision batch's scene and mesh obstacles). The f64 `_host`
+    mirrors are carried over unchanged."""
+    tdt = None if dtype is None else torch_dtype(dtype)
     kw = {}
     for f in dataclasses.fields(batch):
         v = getattr(batch, f.name)
-        if not isinstance(v, torch.Tensor):
-            continue
-        dt = tdt if v.is_floating_point() else v.dtype
-        if v.dtype != dt or (device is not None and v.device != torch.device(device)):
-            kw[f.name] = v.to(device=device, dtype=dt)
+        c = _cast(v, tdt, device)
+        if c is not v:
+            kw[f.name] = c
     if not kw:
         return batch
     out = dataclasses.replace(batch, **kw)

@@ -1,6 +1,5 @@
 """Batched proximal operators, energy gradients and energies of the material
-models (counterpart of aa_admm_tpu/ops/prox.py:1-299, without
-``prox_collision``, which needs the signed-distance colliders).
+models (counterpart of aa_admm_tpu/ops/prox.py:1-299, the whole module).
 
 Replaces the per-element virtual ``EnergyTerm::prox`` of the reference
 (TetEnergyTerm.cpp:101-123 linear; :171-183 hyperelastic via a 9-dim LBFGS;
@@ -292,9 +291,24 @@ def energy_tri(z, mu, lam, k, area):
 
 
 # ----------------------------------------------------------------------------
-# Pins (3-dim z blocks)
+# Pins and collisions (3-dim z blocks)
 # ----------------------------------------------------------------------------
 
 def prox_pin(v, pin_pos, active):
     """SpringPin::prox — snap z to the pin when active (SpringEnergyTerm.hpp:67-71)."""
     return torch.where(active[..., None], pin_pos, v)
+
+
+def prox_collision(v, sdf_scene, active, mesh_sdfs=()):
+    """Collision::prox — snap z to the surface point of the nearest
+    penetrating passive collider (analytic SDFs and/or mesh obstacles,
+    CollisionEnergyTerm.hpp:79-91: all passive_objs are folded by min
+    distance)."""
+    d, point = sdf_scene.signed_distance(v)
+    for m in mesh_sdfs:
+        dm, pm = m.signed_distance(v)
+        closer = dm < d
+        d = torch.where(closer, dm, d)
+        point = torch.where(closer[..., None], pm, point)
+    hit = active & (d < 0.0)
+    return torch.where(hit[..., None], point, v)

@@ -30,12 +30,14 @@ from ..ops._batchutil import hostarr
 
 def _node_stencil(b):
     """(idx (E, k), G (E, k, r)) of an element batch's per-coordinate
-    reduction rows (tets: -sum(B) then B's rows), or (idx (E,), None) for
-    identity reductions on a vertex."""
-    if hasattr(b, "Dm_inv"):
-        Dm = hostarr(b, 'Dm_inv').astype(np.float64)              # (E,3,3)
-        G = np.concatenate([-Dm.sum(axis=1, keepdims=True), Dm], axis=1)
-        return hostarr(b, 'tets'), G                               # (E,4,3)
+    reduction rows (tets: -sum(B) then B's rows; cloth triangles the same
+    with the 2x2 rest inverse R), or (idx (E,), None) for identity
+    reductions on a vertex."""
+    for name, elems in (("Dm_inv", "tets"), ("rest_inv", "tris")):
+        if hasattr(b, name):
+            B = hostarr(b, name).astype(np.float64)      # (E,3,3) / (E,2,2)
+            G = np.concatenate([-B.sum(axis=1, keepdims=True), B], axis=1)
+            return hostarr(b, elems), G                  # (E,4,3) / (E,3,2)
     return hostarr(b, 'idx'), None
 
 
@@ -44,7 +46,8 @@ def assemble_node_matrix(n_verts: int, batches, dt2p: float = 1.0,
     """Host-side dense assembly of the per-coordinate system matrix
     ``M + dt2p * D^T W^2 D`` (n x n over nodes; identical for x/y/z because
     the reduction acts per coordinate — Solver.cpp:459-470; JAX
-    linear.py:37-71). ``batches``: element batches (TetBatch, PinBatch)."""
+    linear.py:37-71). ``batches``: element batches (TetBatch, TriBatch,
+    PinBatch, CollisionBatch, SelfCollisionBatch)."""
     A = np.zeros((n_verts, n_verts))
     diag = np.arange(n_verts)
     if masses is not None:

@@ -40,7 +40,17 @@ non-zero before the final result line):
      on the GPU (the pins must move with the stretch), a torch.profiler
      breakdown of ten accelerated iterations, and one
      accelerated step of the beams built from 48 x 12 x 12 cubes, which
-     takes the CG path.
+     takes the CG path;
+  9. physics in the zxu order, float64, through the apps' build_scene on
+     synthetic mesh files: plinkohit and plinkopony on a 12 x 7 x 8-cube
+     block (936 vertices, the horse's size), 30 frames of -a 1 -am 5 -it 13
+     each, with GPU against CPU over the first contact frame; windyflag on
+     a 64 x 64 grid (GPU against CPU, ten accelerated frames, a profile in
+     result/profile_zxu.txt, sequential wind on 16 x 16); the two-block
+     self-collision scene (30 frames, and the hash collider forced to
+     overflow against the dense one); three accelerated frames of three
+     48 x 12 x 12-cube blocks over the plinkohit pit (24,843 vertices),
+     which take the CG path.
 
 ``--phases 1,2,7`` runs only the listed phases (phase 1 always runs); the
 result lines need every phase.
@@ -948,6 +958,395 @@ def phase_physics(ck):
           f"none of the port's kernels)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: physics in the zxu order (collisions, self-collision, wind)
+# ---------------------------------------------------------------------------
+
+APP_SCALE = 13.0   # the plinko apps' transform: 13 x file + shift
+
+
+def zxu_settings(accel, iters):
+    from aa_admm_tpu_torch.core.config import AccelType, Settings
+    s = Settings()
+    s.admm_iters = iters
+    s.verbose = 0
+    if accel:
+        s.acceleration_type = AccelType.ANDERSON
+        s.anderson_m = 5
+    return s
+
+
+def block_file(d, name, cubes, scale, x_mid, y_low, shift, z_mids=(0.0,)):
+    """make_tet_blocks(*cubes) scaled by `scale`, one copy centred at each z
+    of z_mids, written to d/name.ele/.node so that the plinko apps'
+    transform (13 x + shift) puts the blocks' x centre at x_mid and lowest
+    face at y_low. Returns the basename."""
+    from aa_admm_tpu_torch.core.factory import TetMeshData, make_tet_blocks
+    from aa_admm_tpu_torch.core.meshio import save_elenode
+    mesh = make_tet_blocks(*cubes)
+    v = mesh.verts * scale
+    lo, hi = v.min(0), v.max(0)
+    v = v - [0.5 * (lo[0] + hi[0]), lo[1], 0.5 * (lo[2] + hi[2])]
+    n = len(v)
+    out = TetMeshData(
+        verts=np.concatenate([v + [x_mid, y_low, z] for z in z_mids]),
+        tets=np.concatenate([mesh.tets + i * n for i in range(len(z_mids))]))
+    out.verts = (out.verts - np.asarray(shift)) / APP_SCALE
+    base = os.path.join(d, name)
+    save_elenode(base, out)
+    return base
+
+
+def scene_sd(solver, x):
+    """Signed distance of every vertex to the solver's analytic obstacles."""
+    from aa_admm_tpu_torch.ops.elements import CollisionBatch
+    b = [b for b in solver.system.batches if isinstance(b, CollisionBatch)][0]
+    d, _ = b.scene.signed_distance(torch.as_tensor(x).to(
+        b.scene.floor_y.device, b.scene.floor_y.dtype))
+    return d.cpu().numpy()
+
+
+def run_frames_report(solver, frames, name):
+    """`frames` steps; per frame the count of vertices inside an obstacle
+    (d < 0) and the state before the first frame that ends with some.
+    Returns (first contact frame, state before it, max count, min y)."""
+    first, state, most, ymin = None, None, 0, np.inf
+    for f in range(frames):
+        before = (solver.x.copy(), solver.v.copy())
+        solver.step()
+        d = scene_sd(solver, solver._x_dev)
+        n = int((d < 0).sum())
+        if n and first is None:
+            first, state = f + 1, before
+        most = max(most, n)
+        ymin = min(ymin, float(solver.x[:, 1].min()))
+    solver.flush_traces()
+    ms = np.asarray(solver.step_ms)
+    n_it = len(solver.step_prim)
+    print(f"  {name} -a 1 -am 5 -it {solver.settings.admm_iters}, {frames} "
+          f"frames on the GPU ({solver.n_verts} vertices): "
+          f"{ms.mean():.1f} ms/step (first {ms[0]:.1f}, median "
+          f"{np.median(ms):.1f}), {ms.sum() / max(n_it, 1):.2f} ms/iteration, "
+          f"{sum(solver.step_reject) / frames:.2f} rejects/step, "
+          f"{solver.stats['host_reads'] / frames:.1f} host reads/step; "
+          f"first penetration at frame {first}, most vertices inside an "
+          f"obstacle at a frame end {most}, lowest y {ymin:.4f}")
+    return first, state, most, ymin
+
+
+def compare_frame(app, base, state, accel, iters, sd_solver):
+    """One frame from `state` on the GPU and on the CPU; returns (agree,
+    line): residuals at rtol 1e-8 (above 1e-12 of the first) with equal
+    rejects, positions at 1e-8; plus the vertices whose side of the
+    obstacles differs between the two ends of the frame, and their |d|."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sv = app.build_scene(zxu_settings(accel, iters), mesh_path=base,
+                             device=dev)
+        sv.x, sv.v = state
+        tr = sv.step()
+        out[dev] = (tr.prim.cpu().numpy(), tr.comb.cpu().numpy(),
+                    tr.reject.cpu().numpy(), sv.x)
+    (pg, cg, rg, xg), (pc, cc, rc, xc) = out["cuda"], out["cpu"]
+    ok = ~np.isnan(pc) & ~np.isnan(pg)
+    dp = float(np.max(np.abs(pg - pc)[ok] / pc[ok]))
+    dc = float(np.max(np.abs(cg - cc)[ok] / cc[ok]))
+    dx = float(np.abs(xg - xc).max())
+    agree = (np.array_equal(rg, rc) and np.array_equal(np.isnan(pg), np.isnan(pc))
+             and np.allclose(pg[ok], pc[ok], rtol=1e-8, atol=1e-12 * pc[0])
+             and np.allclose(cg[ok], cc[ok], rtol=1e-8, atol=1e-12 * cc[0])
+             and np.allclose(xg, xc, rtol=1e-8, atol=1e-10))
+    sg, sc = scene_sd(sd_solver, xg), scene_sd(sd_solver, xc)
+    side = (sg < 0) != (sc < 0)
+    near = (np.abs(sg) < 1e-8) | (np.abs(sc) < 1e-8)
+    line = (f"{'Anderson m=5' if accel else 'no acceleration'}: max rel prim "
+            f"{dp:.3e}, comb {dc:.3e}, max |x diff| {dx:.3e}, rejects gpu "
+            f"{int(rg.sum())} cpu {int(rc.sum())} "
+            f"({'equal' if np.array_equal(rg, rc) else 'differ'}); "
+            f"{int(side.sum())} vertices changed side"
+            + (f" (|d| <= {np.abs(np.concatenate([sg[side], sc[side]])).max():.3e})"
+               if side.any() else "")
+            + f", {int(near.sum())} within 1e-8 of a surface")
+    return agree, bool(side.any() or near.any()), line
+
+
+def phase_plinko(app, name, base, frames, floor_ok):
+    solver = app.build_scene(zxu_settings(True, 13), mesh_path=base,
+                             device="cuda")
+    first, state, most, ymin = run_frames_report(solver, frames, name)
+    check(np.isfinite(solver.x).all(), f"{name}: non-finite positions")
+    check(first is not None, f"{name}: no vertex ever penetrated")
+    check(floor_ok(solver), f"{name}: the block fell through (lowest y "
+          f"{ymin})")
+    # GPU against CPU over the first contact frame, from the same state. A
+    # contact's hard snap is discontinuous: where the two runs part, the
+    # vertices on either side of an obstacle's surface are reported.
+    for accel in (False, True):
+        agree, explained, line = compare_frame(app, base, state, accel, 13,
+                                               solver)
+        print(f"  {name} GPU vs CPU, contact frame {first}, {line}")
+        check(agree or explained, f"{name}: GPU and CPU differ over the "
+              "contact frame, and no vertex changed side or lies near a "
+              "surface")
+
+
+def phase_windyflag(tmp):
+    import dataclasses
+    from aa_admm_tpu_torch.apps import windyflag as wf
+    from aa_admm_tpu_torch.core.factory import make_plane_grid
+    from aa_admm_tpu_torch.core.meshio import save_obj
+    from aa_admm_tpu_torch.solver import physics as ph
+
+    def cloth(n):
+        grid = make_plane_grid(n, n, size=1.9)
+        path = os.path.join(tmp, f"cloth{n}.obj")
+        save_obj(path, grid.verts, grid.faces)
+        return path, len(grid.verts), len(grid.faces)
+
+    path, nv, nf = cloth(64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        sv = wf.build_scene(zxu_settings(False, 100), mesh_path=path,
+                            device=dev)
+        setup = time.perf_counter() - t0
+        tr = sv.step()
+        out[dev] = (tr.prim.cpu().numpy(), tr.comb.cpu().numpy(), sv.x,
+                    sv.step_ms[-1], setup)
+    (pg, cg, xg, mg, sg), (pc, cc, xc, mc, sc) = out["cuda"], out["cpu"]
+    dp = float(np.max(np.abs(pg - pc) / pc))
+    dc = float(np.max(np.abs(cg - cc) / cc))
+    print(f"  windyflag 64x64 ({nv} vertices, {nf} triangles, dense path), "
+          f"one non-accelerated step of 100 iterations: GPU {mg:.1f} ms, CPU "
+          f"{mc:.1f} ms (setup {sg:.1f} / {sc:.1f} s); GPU vs CPU max rel "
+          f"prim {dp:.3e}, comb {dc:.3e}, max |x diff| "
+          f"{np.abs(xg - xc).max():.3e}")
+    check(np.allclose(pg, pc, rtol=1e-8, atol=1e-12 * pc[0])
+          and np.allclose(cg, cc, rtol=1e-8, atol=1e-12 * cc[0])
+          and np.allclose(xg, xc, rtol=1e-8, atol=1e-10),
+          f"windyflag: GPU and CPU differ (prim {dp}, comb {dc})")
+
+    frames = 10
+    sv = wf.build_scene(zxu_settings(True, 100), mesh_path=path,
+                        device="cuda")
+    x0 = np.concatenate(sv.verts)
+    pins = sorted(sv.pins)
+    for _ in range(frames):
+        sv.step()
+    sv.flush_traces()
+    ms = np.asarray(sv.step_ms)
+    n_it = len(sv.step_prim)
+    dz = float(sv.x[:, 2].mean() - x0[:, 2].mean())
+    print(f"  windyflag -a 1 -am 5, {frames} frames on the GPU: "
+          f"{ms.mean():.1f} ms/step (first {ms[0]:.1f}, median "
+          f"{np.median(ms):.1f}), {ms.sum() / n_it:.2f} ms/iteration ({n_it} "
+          f"recorded), {sum(sv.step_reject) / frames:.1f} rejects/step, "
+          f"{sv.stats['host_reads'] / frames:.0f} host reads/step; mean z "
+          f"moved {dz:+.4f}")
+    check(np.isfinite(sv.x).all(), "windyflag AA: non-finite positions")
+    check(np.allclose(sv.x[pins], x0[pins], atol=1e-12),
+          "windyflag AA: the pins moved")
+    check(dz > 0, f"windyflag AA: the cloth did not move in +z ({dz})")
+    profile_step(sv, ph.step_zxu, "windyflag", out="result/profile_zxu.txt")
+
+    path, nv, nf = cloth(16)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s2 = wf.build_scene(zxu_settings(False, 100), mesh_path=path,
+                            device=dev, wind_mode="sequential")
+        tr = s2.step()
+        out[dev] = (tr.prim.cpu().numpy(), s2.x, s2.step_ms[-1])
+        if dev == "cuda":
+            # the kick alone, in both modes, from the state after the step
+            system = s2.system
+            kick = {m: cuda_ms(lambda w=dataclasses.replace(system.wind, mode=m):
+                               w.apply(system.dt, s2._x_dev, s2._v_dev,
+                                       system.n_verts), iters=5, warmup=1)
+                    for m in ("sequential", "jacobi")}
+    (pg, xg, mg), (pc, xc, mc) = out["cuda"], out["cpu"]
+    dp = float(np.max(np.abs(pg - pc) / pc))
+    print(f"  windyflag 16x16 ({nv} vertices, {nf} triangles), sequential "
+          f"wind, one non-accelerated step: GPU {mg:.1f} ms, CPU {mc:.1f} ms; "
+          f"GPU vs CPU max rel prim {dp:.3e}, max |x diff| "
+          f"{np.abs(xg - xc).max():.3e}; the kick alone on the GPU: "
+          f"sequential {kick['sequential']:.2f} ms, jacobi "
+          f"{kick['jacobi']:.3f} ms")
+    check(np.allclose(pg, pc, rtol=1e-8, atol=1e-12 * pc[0])
+          and np.allclose(xg, xc, rtol=1e-8, atol=1e-10),
+          f"windyflag sequential wind: GPU and CPU differ ({dp})")
+
+
+def profile_step(solver, step_fn, name, n_iter=10, out="result/profile.txt"):
+    """torch.profiler over one step of `solver`'s system cut to n_iter ADMM
+    iterations (setup included): device busy and idle share, launches per
+    iteration; the table goes to `out`."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    system = dataclasses.replace(solver.system, admm_iters=n_iter)
+    x, v, pp = solver._x_dev, solver._v_dev, solver._pin_pos_dev()
+    step_fn(system, x, v, pp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(system, x, v, pp)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    dev = [e for e in ka if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(dev_us(e) for e in dev) / 1e3
+    launches = sum(e.count for e in dev)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=25))
+    print(f"  profile, {name}, {n_iter} accelerated iterations (setup "
+          f"included): wall {wall_ms:.1f} ms (profiler on), device busy "
+          f"{busy_ms:.2f} ms, device idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{launches / n_iter:.0f} device launches per iteration")
+    for e in sorted(dev, key=dev_us, reverse=True)[:8]:
+        print(f"    {dev_us(e) / 1e3 / n_iter:8.3f} ms/iteration  "
+              f"x{e.count:<6d} {e.key[:80]}")
+
+
+def phase_selfcollision():
+    from aa_admm_tpu_torch.core.config import Lame
+    from aa_admm_tpu_torch.core.factory import make_tet_blocks
+    from aa_admm_tpu_torch.ops.collider import (DynamicTetCollider,
+                                                HashGridTetCollider)
+    from aa_admm_tpu_torch.solver.physics import PhysicsSolver
+    bottom, top = make_tet_blocks(2, 1, 2), make_tet_blocks(1, 1, 1)
+
+    def scene(top_y, colliders):
+        sv = PhysicsSolver(order="zxu", device="cuda")
+        o0 = sv.add_tetmesh(bottom.verts, bottom.tets, Lame.rubber(),
+                            self_collision=colliders == "mesh")
+        sv.add_tetmesh(top.verts + [0.5, top_y, 0.5], top.tets, Lame.rubber(),
+                       self_collision=colliders == "mesh")
+        sv.set_pins(list(range(o0, o0 + len(bottom.verts))))
+        nb = len(bottom.verts)
+        if colliders == "overflow":
+            sv.add_dynamic_collider(bottom.verts, bottom.tets, 0,
+                                    n_buckets=1, cap=1)
+            sv.add_dynamic_collider(top.verts + [0.5, top_y, 0.5], top.tets,
+                                    nb, n_buckets=1, cap=1)
+        elif colliders == "dense":
+            sv.dynamic_colliders = [
+                DynamicTetCollider.create(bottom.verts, bottom.tets, 0),
+                DynamicTetCollider.create(top.verts + [0.5, top_y, 0.5],
+                                          top.tets, nb)]
+        sv.initialize(zxu_settings(False, 10))
+        return sv
+
+    frames = 30
+    sv = scene(2.0, "mesh")
+    nb = len(bottom.verts)
+    contacts, ymin = [], np.inf
+    for _ in range(frames):
+        sv.step()
+        b = sv.system.batches[sv._selfcol_index]
+        contacts.append(int(b.active.sum()))
+        ymin = min(ymin, float(sv.x[nb:, 1].min()))
+    ms = np.asarray(sv.step_ms)
+    print(f"  self-collision, two blocks, {frames} frames on the GPU: "
+          f"{ms.mean():.1f} ms/step (median {np.median(ms):.1f}), "
+          f"{sv.stats['host_reads'] / frames:.1f} host reads/step; contacts "
+          f"in {sum(c > 0 for c in contacts)} frames (most {max(contacts)}), "
+          f"lowest y of the top block {ymin:.4f}")
+    check(np.isfinite(sv.x).all(), "self-collision: non-finite positions")
+    check(max(contacts) > 0, "self-collision: no contact ever fired")
+    check(0.5 < ymin < 1.4, f"self-collision: top block lowest y {ymin}")
+
+    ref, ov = scene(0.95, "dense"), scene(0.95, "overflow")
+    ref._refresh_self_contacts()
+    ov._refresh_self_contacts()
+    br = ref.system.batches[ref._selfcol_index]
+    bo = ov.system.batches[ov._selfcol_index]
+    kinds = [type(c).__name__ for c in ov.dynamic_colliders]
+    dt = float((br.target - bo.target).abs().max())
+    print(f"  hash collider forced to overflow (1 bucket, cap 1): escalated "
+          f"to {kinds}, {int(bo.active.sum())} contacts, the dense "
+          f"collider's {int(br.active.sum())}, max |target diff| {dt:.3e}")
+    check(bool(br.active.any()), "self-collision overflow: no contact")
+    check(torch.equal(br.active, bo.active) and dt <= 1e-12,
+          "self-collision overflow: contact set differs from the dense one")
+    check(not any(isinstance(c, HashGridTetCollider)
+                  for c in ov.dynamic_colliders),
+          "self-collision overflow: did not escalate")
+
+
+def phase_zxu(ck):
+    import tempfile
+    from aa_admm_tpu_torch.apps import plinkohit, plinkopony
+    ck.reset_launch_counts()
+    tmp = tempfile.mkdtemp(prefix="smoke_zxu_")
+    try:
+        t0 = time.perf_counter()
+        hit = block_file(tmp, "hit", (12, 7, 8), 0.15, 0.25, -1.0,
+                         (0.25, 2.5, 0.0))
+        phase_plinko(plinkohit, "plinkohit-synthetic", hit, 30,
+                     lambda s: s.x[:, 1].min() > -4.3)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        pony = block_file(tmp, "pony", (12, 7, 8), 0.15, 0.25, 4.0,
+                          (0.25, 5.0, 0.0))
+        slide_n = np.array([0.5, np.sqrt(3.0) / 2.0, 0.0])
+        phase_plinko(plinkopony, "plinkopony-synthetic", pony, 30,
+                     lambda s: ((s.x - [0.0, -6.5, 0.0]) @ slide_n).min()
+                     > -0.3)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        phase_windyflag(tmp)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        phase_selfcollision()
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+
+        # zxu at CG size: three 48 x 12 x 12-cube blocks side by side
+        # (24,843 vertices, 103,680 tets, as beams-cg-103k), over the pit
+        t0 = time.perf_counter()
+        big = block_file(tmp, "big", (48, 12, 12), 0.1, 0.0, -2.99,
+                         (0.25, 2.5, 0.0), z_mids=(-1.5, 0.0, 1.5))
+        sv = plinkohit.build_scene(zxu_settings(True, 13), mesh_path=big,
+                                   device="cuda")
+        setup = time.perf_counter() - t0
+        check(sv.system.solver is None and sv.system.precond_diag is not None,
+              "zxu CG size: initialize did not take the CG path")
+        first = None
+        for f in range(3):
+            tr = sv.step()
+            prim = tr.prim.cpu().numpy()
+            valid = prim[~np.isnan(prim)]
+            n_in = int((scene_sd(sv, sv._x_dev) < 0).sum())
+            if n_in and first is None:
+                first = f + 1
+            print(f"  zxu CG size frame {f + 1}: {sv.step_ms[-1]:.1f} ms, "
+                  f"prim {valid[0]:.4e} -> {valid[-1]:.4e}, "
+                  f"{int(tr.reject.sum())} rejects, {n_in} vertices inside "
+                  f"the obstacle")
+            check(np.isfinite(valid).all() and valid[-1] < valid[0],
+                  f"zxu CG size: the primal residual did not fall in frame "
+                  f"{f + 1}")
+        n_tets = sum(int(b.tets.shape[0]) for b in sv.system.batches
+                     if hasattr(b, "tets"))
+        print(f"  zxu CG size ({sv.system.n_verts} vertices, {n_tets} tets, "
+              f"CG path): setup {setup:.2f} s, {np.mean(sv.step_ms):.1f} "
+              f"ms/step, {sv.stats['cg_iters']} CG iterations, "
+              f"{sv.stats['host_reads']} host reads in 3 frames")
+        check(np.isfinite(sv.x).all(), "zxu CG size: non-finite positions")
+        check(first is not None and first <= 3,
+              "zxu CG size: no vertex penetrated by frame 3")
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = ck.launch_counts()
+    print(f"  kernel launches in phase 9: {counts} (the physics path runs "
+          f"none of the port's kernels)")
+
+
 def main(argv):
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -955,7 +1354,7 @@ def main(argv):
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from aa_admm_tpu_torch.ops import cuda_kernels as ck
-    want = set(range(1, 9))
+    want = set(range(1, 10))
     if argv[:1] == ["--phases"] and len(argv) == 2:
         want = {1} | {int(a) for a in argv[1].split(",")}
     elif argv:
@@ -1019,7 +1418,13 @@ def main(argv):
         phase("8 physics: beams (GPU vs CPU, golden, AA frames, CG size)",
               t0)
 
-    if want != set(range(1, 9)):
+    if 9 in want:
+        t0 = time.perf_counter()
+        phase_zxu(ck)
+        phase("9 physics, zxu: plinkohit, plinkopony, windyflag, "
+              "self-collision, CG size", t0)
+
+    if want != set(range(1, 10)):
         print(f"  total {time.perf_counter() - T0:.1f} s; phases "
               f"{sorted(want)} only, so no result lines")
         return 3

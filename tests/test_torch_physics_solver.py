@@ -1,17 +1,22 @@
-"""The port's xzu physics solver on its own, at f64 on the CPU, on the small
+"""The port's physics solver on its own, at f64 on the CPU, on the small
 scene of tests/test_physics.py and on beams: CG against the dense inverse,
 ``run`` against repeated ``step`` with moving pins, the residual file, pins
-and gravity, the parts that ``initialize`` refuses until they are ported,
-and the entry points' device rule (tests/test_torch_physics.py holds the
-port against the JAX package and the C++ golden)."""
+and gravity, what ``initialize`` accepts and refuses in each order, and the
+entry points' device rule (tests/test_torch_physics.py and
+tests/test_torch_zxu.py hold the port against the JAX package and the C++
+golden)."""
 
 import numpy as np
 import pytest
 import torch
 
 from aa_admm_tpu_torch.apps import beams as tbeams
+from aa_admm_tpu_torch.apps import plinkohit as thit
+from aa_admm_tpu_torch.apps import plinkopony as tpony
+from aa_admm_tpu_torch.apps import windyflag as tflag
 from aa_admm_tpu_torch.core.config import AccelType, Lame, Settings
-from aa_admm_tpu_torch.core.factory import make_tet_blocks
+from aa_admm_tpu_torch.core.factory import make_plane_grid, make_tet_blocks
+from aa_admm_tpu_torch.core.meshio import save_elenode, save_obj
 from aa_admm_tpu_torch.solver import physics as tphys
 
 
@@ -125,6 +130,9 @@ def test_pins_hold_and_bodies_fall():
 
 
 def test_initialize_refuses_unported_parts():
+    """zxu and wind initialize (and step); obstacles, collision terms and
+    dynamic colliders with xzu raise ValueError, as in the JAX package;
+    trace_chunk > 0 is not ported yet."""
     mesh = make_tet_blocks(2, 1, 1)
     s = _settings(False, 2)
 
@@ -133,24 +141,46 @@ def test_initialize_refuses_unported_parts():
         sv.add_tetmesh(mesh.verts, mesh.tets, Lame.rubber())
         return sv
 
-    with pytest.raises(NotImplementedError):
-        fresh("zxu").initialize(s)
-    sv = fresh()
+    sv = fresh("zxu")
     sv.add_obstacle("floor", y=-2.0)
-    with pytest.raises(ValueError):
-        sv.initialize(s)
+    sv.set_collisions(range(len(mesh.verts)))
+    sv.set_wind(mesh.tets[:, :3], np.ones(3))
+    assert sv.initialize(s)
+    assert sv.system.order == "zxu" and sv.system.wind is not None
+    sv.step()
+    assert np.isfinite(sv.x).all()
     sv = fresh()
-    sv.set_wind(np.zeros((1, 3), np.int64), np.ones(3))
-    with pytest.raises(NotImplementedError):
-        sv.initialize(s)
+    sv.set_wind(mesh.tets[:, :3], np.ones(3), mode="sequential")
+    assert sv.initialize(s)
+    with pytest.raises(ValueError, match="wind mode"):
+        sv.set_wind(mesh.tets[:, :3], np.ones(3), mode="gusty")
+    for refuse in (lambda sv: sv.add_obstacle("floor", y=-2.0),
+                   lambda sv: sv.add_obstacle("mesh", verts=mesh.verts,
+                                              tets=mesh.tets),
+                   lambda sv: sv.set_collisions([0, 1]),
+                   lambda sv: sv.add_dynamic_collider(mesh.verts, mesh.tets)):
+        sv = fresh()
+        refuse(sv)
+        with pytest.raises(ValueError):
+            sv.initialize(s)
     sv = fresh()
     s.trace_chunk = 4
     with pytest.raises(NotImplementedError):
         sv.initialize(s)
 
 
+def _mesh_files(tmp_path):
+    """A tet block as .ele/.node and a cloth as .obj."""
+    block = str(tmp_path / "block")
+    save_elenode(block, make_tet_blocks(2, 1, 1))
+    cloth = str(tmp_path / "cloth.obj")
+    grid = make_plane_grid(4, 4)
+    save_obj(cloth, grid.verts, grid.faces)
+    return block, cloth
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the CPU-only rule")
-def test_entry_points_need_cuda():
+def test_entry_points_need_cuda(tmp_path):
     s = _settings(False, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tphys.PhysicsSolver()
@@ -158,6 +188,15 @@ def test_entry_points_need_cuda():
         tbeams.build_scene(s)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tbeams.main(["-it", "2"], n_frames=1)
+    block, cloth = _mesh_files(tmp_path)
+    for app, path in ((thit, block), (tpony, block), (tflag, cloth)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            app.build_scene(s, mesh_path=path)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            app.main(["-it", "2", "--mesh", path], n_frames=1,
+                     result_dir=str(tmp_path / "r"))
+        assert app.build_scene(s, mesh_path=path,
+                               device="cpu").device.type == "cpu"
 
 
 @pytest.mark.cuda
@@ -192,3 +231,62 @@ def test_cuda_graphs_match_eager_on_card(accel, linear_solver):
                                    rtol=1e-8, atol=1e-9)
         np.testing.assert_allclose(out[key][1], out["cpu", 0][1],
                                    rtol=1e-8, atol=1e-9 * out[key][1][0])
+
+
+@pytest.mark.cuda
+def test_graphed_zxu_step_after_contact_refresh_on_card(monkeypatch):
+    """On the card the self-collision prox replays a CUDA graph that reads
+    the contacts copied into its batch each step. Over steps whose contact
+    set changes (empty, then the landing block's, then empty again), every
+    graph replay must give exactly what the eager call gives on the same
+    input and contacts, and the contacts detected on the card must equal
+    the CPU's from the same state.
+
+    Whole steps are not compared with the CPU's: the hard snap turns
+    roundoff into up to 3.8e-7 of x in a contact step (a one-ulp nudge of
+    the state does that on the CPU alone), and a graph sums in its own
+    order (steps without contacts agree to 4e-15, measured on an H100)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    bottom, top = make_tet_blocks(2, 1, 2), make_tet_blocks(1, 1, 1)
+    s = _settings(False, 10)
+    solvers = {}
+    for dev in ("cpu", "cuda"):
+        sv = tphys.PhysicsSolver(order="zxu", device=dev)
+        o0 = sv.add_tetmesh(bottom.verts, bottom.tets, Lame.rubber(),
+                            self_collision=True)
+        sv.add_tetmesh(top.verts + [0.5, 1.05, 0.5], top.tets, Lame.rubber(),
+                       self_collision=True)
+        sv.set_pins(list(range(o0, o0 + len(bottom.verts))))
+        sv.initialize(s)
+        solvers[dev] = sv
+    gpu, cpu = solvers["cuda"], solvers["cpu"]
+
+    replays = []
+    graphed = tphys._graphed
+
+    def checked(system, key, fn, x):
+        y = graphed(system, key, fn, x)
+        replays.append((key, torch.equal(y, fn(x))))
+        return y
+
+    monkeypatch.setattr(tphys, "_graphed", checked)
+    counts = []
+    for _ in range(6):
+        cpu.x = gpu.x                        # the same state on both
+        cpu._refresh_self_contacts()
+        gpu.step()
+        bg = gpu.system.batches[gpu._selfcol_index]
+        bc = cpu.system.batches[cpu._selfcol_index]
+        np.testing.assert_array_equal(bg.active.cpu().numpy(),
+                                      bc.active.numpy())
+        for name in ("target", "normal"):
+            np.testing.assert_allclose(getattr(bg, name).cpu().numpy(),
+                                       getattr(bc, name).numpy(),
+                                       rtol=1e-12, atol=1e-12)
+        counts.append(int(bc.active.sum()))
+        assert np.isfinite(gpu.x).all()
+    assert counts[0] == 0 and max(counts) > 0 and counts[-1] == 0, counts
+    assert replays and all(ok for _, ok in replays), \
+        sorted({k for k, ok in replays if not ok})
+    assert len(gpu.system.__dict__["_graphs"]) == len(gpu.system.batches)
