@@ -2,24 +2,29 @@
 aa_admm_tpu/apps/beams.py:1-135; admm_anderson_xzu/samples/Asia2019/
 beams.cpp:94-167, headless).
 
-Usage: python -m aa_admm_tpu_torch.apps.beams [-it N -a 1 -am M ...] [--cpu]
+Usage: python -m aa_admm_tpu_torch.apps.beams [-it N -a 1 -am M ...]
+           [--log-x-star] [--cpu]
 
 Three 12x3x3 tet-block beams (Linear / NeoHookean / StVK, soft rubber),
 end-pinned, with the pins stretched +/- x by 1 m/s each frame
 (stretch_beams, beams.cpp:66-92). Runs the xzu solver on the CUDA card
 unless device="cpu" (or --cpu), and writes result/residual-{m|no}.txt like
-the reference's testAndersonADMM harness. ``cubes`` scales each beam's
+the reference's testAndersonADMM harness; --log-x-star first writes
+result/solverlog-{m|no}.txt (``log_x_star``). ``cubes`` scales each beam's
 block counts (the published scene is (12, 3, 3)).
 """
 
 from __future__ import annotations
 
+import copy
+import os
 import sys
 
 import numpy as np
 
-from ..core.config import Lame, Settings
+from ..core.config import AccelType, Lame, Settings
 from ..core.factory import make_tet_blocks
+from ..core.solverlog import SolverLog
 from ..solver.physics import PhysicsSolver, UpdateOrder
 
 
@@ -68,16 +73,52 @@ def build_scene(settings: Settings, order=UpdateOrder.XZU, device=None,
     return solver, stretch
 
 
+def log_x_star(settings: Settings, result_dir: str = "result",
+               star_iters: int = 2000, device=None):
+    """Convergence against the ground truth (SolverLog.hpp:28-71): run the
+    first beams timestep to convergence (star_iters iterations without
+    acceleration, the minimizer of that step's ADMM objective), then the
+    same step with `settings` through step_instrumented feeding a
+    SolverLog, and write result/solverlog-{m|no}.txt with one
+    ``runtime_ms  normalized_error`` row per iteration (error = ||x* - x||
+    / ||x* - x0||). Returns the SolverLog."""
+    star_settings = copy.deepcopy(settings)
+    star_settings.admm_iters = star_iters
+    star_settings.acceleration_type = AccelType.NOACC
+    ref_solver, ref_stretch = build_scene(star_settings, device=device)
+    ref_stretch(star_settings.timestep_s)
+    ref_solver.step()
+    log = SolverLog()
+    log.x_star = np.asarray(ref_solver.x, np.float64).ravel()
+
+    solver, stretch = build_scene(settings, device=device)
+    stretch(settings.timestep_s)
+    solver.step_instrumented(log=log)
+
+    os.makedirs(result_dir, exist_ok=True)
+    tag = (str(settings.anderson_m)
+           if settings.acceleration_type == AccelType.ANDERSON else "no")
+    with open(os.path.join(result_dir, f"solverlog-{tag}.txt"), "w") as f:
+        for t, e in zip(log.runtimes, log.errors):
+            f.write(f"{t}\t{e:.16g}\n")
+    return log
+
+
 def main(argv=None, n_frames: int = 10, result_dir: str = "result",
          device=None):
     argv = list(argv if argv is not None else sys.argv[1:])
     if "--cpu" in argv:
         argv.remove("--cpu")
         device = "cpu"
+    want_log = "--log-x-star" in argv
+    if want_log:
+        argv.remove("--log-x-star")
     settings = Settings()
     settings.admm_iters = 100
     if settings.parse_args(argv):
         return 0
+    if want_log:
+        log_x_star(settings, result_dir, device=device)
     solver, stretch = build_scene(settings, device=device)
     for _ in range(n_frames):
         stretch(settings.timestep_s)

@@ -1,6 +1,7 @@
 """Mesh IO: Wavefront OBJ and TetGen .ele/.node (counterpart of
-aa_admm_tpu/core/meshio.py, NumPy parsers only; the native ctypes loader is
-not part of the port yet).
+aa_admm_tpu/core/meshio.py). ``load_obj`` and ``load_elenode`` take the
+native C++ parsers (aa_admm_tpu_torch.native) when that library builds; the
+NumPy parsers below are the fallback for machines without a compiler.
 
 Behavioral equivalents of mclscene MeshIO (``MCL/MeshIO.hpp`` ``load_obj``:55,
 ``load_elenode``:180, ``save_elenode``) and the subset of OpenMesh OBJ IO used
@@ -49,7 +50,17 @@ def _parse_obj(path: str):
 
 
 def load_obj(path: str) -> TriMeshData:
-    """Parse vertices + triangular faces from OBJ (polygons are fan-split)."""
+    """Parse vertices + triangular faces from OBJ (polygons are fan-split):
+    natively where the library builds, else in NumPy."""
+    from .. import native
+    out = native.load_obj_native(path)
+    if out is not None:
+        return TriMeshData(verts=out[0], faces=out[1])
+    return load_obj_numpy(path)
+
+
+def load_obj_numpy(path: str) -> TriMeshData:
+    """load_obj's NumPy parser."""
     verts, polys = _parse_obj(path)
     faces = [[f[0], f[k], f[k + 1]] for f in polys for k in range(1, len(f) - 1)]
     return TriMeshData(verts=verts,
@@ -76,8 +87,18 @@ def load_elenode(basename: str) -> TetMeshData:
 
     ``basename.ele``: header '<n_tets> ...', rows 'id v0 v1 v2 v3'.
     ``basename.node``: header '<n_verts> ...', rows 'id x y z'.
-    Indices may start at 0 or 1; detected and normalized.
+    Indices may start at 0 or 1; detected and normalized. Parsed natively
+    where the library builds, else in NumPy.
     """
+    from .. import native
+    out = native.load_elenode_native(basename)
+    if out is not None:
+        return TetMeshData(verts=out[0], tets=out[1])
+    return load_elenode_numpy(basename)
+
+
+def load_elenode_numpy(basename: str) -> TetMeshData:
+    """load_elenode's NumPy parser."""
     def read_rows(path, ncols):
         with open(path, "r") as f:
             header = f.readline().split()

@@ -1,15 +1,19 @@
 """ADMM physics solver in both update orders (counterpart of
-aa_admm_tpu/solver/physics.py:1-463, :702-916 and ``PhysicsSolver``
-:923-1263, :1456-1632):
+aa_admm_tpu/solver/physics.py and its ``PhysicsSolver``):
   * x->z->u with Anderson acceleration on z (admm_anderson_xzu/src/
     Solver.cpp:34-263);
   * z->x->u with Anderson acceleration on the (u, x) pair, the ADMM penalty
     parameter and per-vertex hard-collision terms against analytic and
     tet-mesh obstacles and, refreshed every step, against deforming tet
     meshes (admm_anderson_hard_zxu/src/Solver.cpp:34-234);
-  * the wind's explicit velocity kick in either order.
-The instrumented steps, chunked residual tracing and the checkpoints are not
-ported yet: ``initialize`` raises NotImplementedError for ``trace_chunk``.
+  * the wind's explicit velocity kick in either order;
+  * the instrumented steps (``step_{xzu,zxu}_instrumented``: the same
+    algorithm as a host loop of phases, each ended by a device
+    synchronization, accumulating ``RuntimeData``), chunked residual
+    tracing (``Settings.trace_chunk``: the step in chunks of iterations with
+    the time measured at each chunk boundary) and mid-step ADMM state dumps
+    in the reference's text format with an .npz sidecar of the whole carry
+    (``save_admm_state`` / ``load_admm_state``).
 
 Where the JAX package compiles one timestep as a ``lax.scan`` over the ADMM
 iterations with a ``lax.cond`` for the accelerator's reject branch, the port
@@ -28,8 +32,9 @@ state:
     the AA Gram matrix already costs one per iteration.
 Host reads per iteration: one for the AA Gram matrix (``anderson.compute``
 solves it on the CPU), the CG loop tests, the reject test where it is read,
-and one per self-contact detection (its overflow flag);
-``PhysicsSolver.stats["host_reads"]`` counts them.
+and one per self-contact detection (its overflow flag); the instrumented
+steps read each residual as well, and a chunked step synchronizes once per
+chunk. ``PhysicsSolver.stats["host_reads"]`` counts the reads.
 
 Where XLA fuses the local step into a few kernels, eager PyTorch launches
 each elementwise op of the batched SVD and Newton: about 15,000 launches
@@ -39,7 +44,11 @@ graphs, each captured on first use for its system (fixed shapes, no host
 reads inside) and replayed with its inputs copied in (``_graphed``); the
 kernels and their results are those of the eager calls. Self-contacts
 change every step: the solver copies them into the SelfCollisionBatch's own
-tensors in place, so one system and its graphs serve every step.
+tensors in place, so one system and its graphs serve every step. On the
+card the x-step's scatter (``index_add_``) sums with float atomics, so two
+runs of one step agree bit for bit (a chunked step with the fused one, a
+sidecar replay with the uninterrupted step) only under
+``torch.use_deterministic_algorithms(True)``.
 
 The free/fixed split (S_free / S_fix, Solver.cpp:285-328) is index tensors
 into full-vertex tensors; every z/u block is in plane form (C, E)
@@ -57,10 +66,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.checkpoint import load_admm_state_text, save_admm_state_text
 from ..core.config import Lame, Settings
 from ..core.factory import TetMeshData
 from ..core.meshio import save_residual_file
-from ..core.timers import MicroTimer
+from ..core.timers import MicroTimer, RuntimeData
 from ..ops._batchutil import cast_floats, torch_dtype
 from ..ops.collider import (DynamicTetCollider, HashGridTetCollider,
                             TetMeshSdf)
@@ -204,6 +214,75 @@ def _unflatten(flat, templates):
     return tuple(out)
 
 
+def _reversed_axes(t):
+    return t.permute(tuple(range(t.ndim - 1, -1, -1)))
+
+
+def _flatten_ref(ts):
+    """Element-major flatten of plane-form (C, E) blocks: the order of the
+    text checkpoint format (element index outer, components inner), which is
+    not the order of the blocks in memory."""
+    return torch.cat([_reversed_axes(t).reshape(-1) for t in ts])
+
+
+def _unflatten_ref(flat, templates):
+    """Inverse of _flatten_ref back into plane-form blocks."""
+    out, off = [], 0
+    for t in templates:
+        size = t.numel()
+        out.append(_reversed_axes(flat[off:off + size].reshape(
+            tuple(reversed(t.shape)))))
+        off += size
+    return tuple(out)
+
+
+def _tree_leaves(tree, path=""):
+    """(path, tensor) leaves of a carried state in a fixed order: dict keys
+    in insertion order, tuple items, AAState fields, then tensors."""
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items()
+                for leaf in _tree_leaves(v, f"{path}.{k}")]
+    if isinstance(tree, tuple):
+        return [leaf for i, v in enumerate(tree)
+                for leaf in _tree_leaves(v, f"{path}[{i}]")]
+    if isinstance(tree, anderson.AAState):
+        return [leaf for f in dataclasses.fields(tree)
+                for leaf in _tree_leaves(getattr(tree, f.name),
+                                         f"{path}.{f.name}")]
+    return [(path, tree)]
+
+
+def _tree_unflatten(template, leaves):
+    """A carried state of `template`'s structure holding `leaves` in the
+    order of _tree_leaves."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(build(v) for v in t)
+        if isinstance(t, anderson.AAState):
+            return anderson.AAState(**{f.name: build(getattr(t, f.name))
+                                       for f in dataclasses.fields(t)})
+        return next(it)
+    return build(template)
+
+
+def _carry_fingerprint(carry):
+    """Structure fingerprint of an ADMM loop carry for the .npz sidecar:
+    each leaf's path (the carry's key order, the AA state's fields) with
+    its dtype and shape."""
+    return ",".join(f"{p}:{str(t.dtype).removeprefix('torch.')}"
+                    f"{tuple(t.shape)}" for p, t in _tree_leaves(carry))
+
+
+def _sync_dev(t):
+    """Wait for the device that holds t (nothing to wait for on the CPU)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
 def _select(cond, a, b):
     """torch.where(cond, a, b) over a carried state (dicts, tuples, AA
     states, tensors)."""
@@ -286,6 +365,32 @@ def _prim_vec(system, x_full, z):
     """W D x - W z - C = w (F(x) - z) per block (Solver.cpp:154)."""
     F = system.deform(x_full)
     return _tmap(lambda b, f, zb: _wx(b, f - zb), system.batches, F, z)
+
+
+def _j_prim_norm(system, x_full, z):
+    return torch.sqrt(_sqnorm_all(_prim_vec(system, x_full, z)))
+
+
+def _j_add_prim(system, u, x_full, z):
+    return _tmap(torch.add, u, _prim_vec(system, x_full, z))
+
+
+def _j_winv_grad(system, z):
+    return _tmap(lambda b, g: _wx(b, g, -1), system.batches,
+                 _grad_all(system, z))
+
+
+def _j_comb(system, x_full, z, z_ref):
+    dual = _tmap(lambda b, a, c: _wx(b, a - c), system.batches, z, z_ref)
+    return _sqnorm_all(dual + _prim_vec(system, x_full, z))
+
+
+def _j_comb_zxu(system, x_full, last_x, z):
+    """zxu combined residual ||Dx - Wz - C||^2 + ||WD(x - x_last)||^2
+    (admm_anderson_hard_zxu/src/Solver.cpp:181-185)."""
+    dual = _tmap(lambda b, a, c: _wx(b, a - c), system.batches,
+                 system.deform(x_full), system.deform(last_x))
+    return _sqnorm_all(_prim_vec(system, x_full, z) + dual)
 
 
 def _solve_x(system: PhysicsSystem, M_xbar_free, z, u, c_blocks, base_full,
@@ -384,23 +489,22 @@ def _xzu_body(system: PhysicsSystem, consts, counts=None):
 
         if accel:
             # u <- W^-1 grad U(z) (Solver.cpp:127-133)
-            cu = _tmap(lambda b, g: _wx(b, g, -1), system.batches,
-                       _grad_all(system, cz))
+            cu = _j_winv_grad(system, cz)
         else:
             # u += Dx - Wz - C (Solver.cpp:138-141)
-            cu = _tmap(torch.add, cu, _prim_vec(system, cx, cz))
+            cu = _j_add_prim(system, cu, cx, cz)
 
         cx = solve(cz, cu, x_warm=cx)
-        prim = torch.sqrt(_sqnorm_all(_prim_vec(system, cx, cz)))
+        prim = _j_prim_norm(system, cx, cz)
 
         if accel:
             rejected = carry["prev"] < prim
 
             def do_reject():
                 aa2 = anderson.replace(aa, _flatten(dz_))
-                cu2 = _tmap(torch.add, du_, _prim_vec(system, dx_, dz_))
+                cu2 = _j_add_prim(system, du_, dx_, dz_)
                 cx2 = solve(dz_, cu2)
-                prim2 = torch.sqrt(_sqnorm_all(_prim_vec(system, cx2, dz_)))
+                prim2 = _j_prim_norm(system, cx2, dz_)
                 return cx2, dz_, cu2, aa2, prim2
 
             if system.solver is not None:
@@ -431,13 +535,9 @@ def _xzu_body(system: PhysicsSystem, consts, counts=None):
             if accel:
                 comb_x = solve(ndz, cu)
                 comb_z = _update_z(system, comb_x, cu)
-                dual = _tmap(lambda b, a, c: _wx(b, a - c),
-                             system.batches, comb_z, ndz)
-                comb = _sqnorm_all(dual + _prim_vec(system, comb_x, comb_z))
+                comb = _j_comb(system, comb_x, comb_z, ndz)
             else:
-                dual = _tmap(lambda b, a, c: _wx(b, a - c),
-                             system.batches, cz, last_z)
-                comb = _sqnorm_all(dual + _prim_vec(system, cx, cz))
+                comb = _j_comb(system, cx, cz, last_z)
         else:
             comb = torch.full((), float("inf"), dtype=prim.dtype,
                               device=prim.device)
@@ -467,27 +567,164 @@ def _commit_x(system: PhysicsSystem, carry):
     return carry["x"]
 
 
-def _run_step(system: PhysicsSystem, setup, body_factory, x, v, pin_pos,
-              counts):
-    """One timestep of either order: (x_new, v_new, StepTrace)."""
-    carry, consts = setup(system, x, v, pin_pos, counts)
-    body = body_factory(system, consts, counts)
+def _step_setup(system: PhysicsSystem, x, v, pin_pos, counts=None):
+    """The system's order's prediction and init sweep: (carry, consts)."""
+    setup = _xzu_setup if system.order == "xzu" else _zxu_setup
+    return setup(system, x, v, pin_pos, counts)
+
+
+def _step_scan_chunk(system: PhysicsSystem, carry, consts, length: int,
+                     counts=None):
+    """`length` (>= 1) ADMM iterations from `carry`: (carry, (prims, combs,
+    rejects)), each (length,)."""
+    factory = _xzu_body if system.order == "xzu" else _zxu_body
+    body = factory(system, consts, counts)
     recs = []
-    for _ in range(system.admm_iters):
+    for _ in range(length):
         carry, rec = body(carry)
         recs.append(rec)
-    prims, combs, rejects = (torch.stack([r[i] for r in recs])
-                             for i in range(3))
+    return carry, tuple(torch.stack([r[i] for r in recs]) for i in range(3))
+
+
+def _cat_chunks(outs):
+    """(prims, combs, rejects) of consecutive _step_scan_chunk outputs."""
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+
+def _step_commit(system: PhysicsSystem, carry, x0, prims, combs, rejects):
+    """The committed positions and velocities and the StepTrace."""
     x_new = _commit_x(system, carry)
-    v_new = (x_new - x) / system.dt
+    v_new = (x_new - x0) / system.dt
     n_valid = (~torch.isnan(prims)).sum()
     return x_new, v_new, StepTrace(prims, combs, rejects, n_valid,
                                    carry["resets"])
 
 
+def _run_step(system: PhysicsSystem, x, v, pin_pos, counts):
+    """One timestep of the system's order: (x_new, v_new, StepTrace)."""
+    carry, consts = _step_setup(system, x, v, pin_pos, counts)
+    carry, ys = _step_scan_chunk(system, carry, consts, system.admm_iters,
+                                 counts)
+    return _step_commit(system, carry, x, *ys)
+
+
 def step_xzu(system: PhysicsSystem, x, v, pin_pos, counts=None):
     """One xzu timestep: (x_new, v_new, StepTrace)."""
-    return _run_step(system, _xzu_setup, _xzu_body, x, v, pin_pos, counts)
+    return _run_step(system, x, v, pin_pos, counts)
+
+
+# ---- instrumented steps: the same algorithm as a host loop of phases ----
+
+def _phase_tools(system, x, v, pin_pos, counts):
+    """What both instrumented steps share: the prediction's constants, the
+    x-solve and a counted host read."""
+    v, xbar_full, base_full = _predict(system, x, v, pin_pos)
+    fi = system.free_idx
+    M_xbar_free = system.masses[fi, None] * xbar_full[fi]
+    c_blocks = system.deform(base_full)
+
+    def solve(z, u, x_warm=None):
+        return _solve_x(system, M_xbar_free, z, u, c_blocks, base_full,
+                        x_warm=x_warm, counts=counts)
+
+    def read(s):
+        counts["host_reads"] += 1
+        return float(s)
+    return xbar_full, base_full, solve, read
+
+
+def step_xzu_instrumented(system: PhysicsSystem, x, v, pin_pos,
+                          runtime: RuntimeData, log=None, counts=None):
+    """Per-phase instrumented xzu step (JAX physics.py:465-561): the
+    algorithm of ``step_xzu`` as a host loop of phases that accumulates the
+    reference's RuntimeData buckets (global, local, acceleration,
+    initialization ms, Solver.cpp:102-244) and appends one cumulative time
+    per recorded iteration to ``runtime.step_time``. Each phase ends in a
+    device synchronization; each residual is read on the host (counted in
+    `counts`). On the card the prox, gradient and CG operator replay the
+    fused step's CUDA graphs.
+
+    log: optional core.solverlog.SolverLog, fed the positions after each
+    global solve (SolverLog.hpp:44-60). Returns (x_new, v_new, prims,
+    combs, resets) with numpy residuals."""
+    counts = _counts() if counts is None else counts
+    t = MicroTimer()
+    xbar_full, base_full, solve, read = _phase_tools(system, x, v, pin_pos,
+                                                     counts)
+    z = system.deform(xbar_full)
+    u = _tmap(torch.zeros_like, z)
+    x_full = solve(z, u)
+    z = _update_z(system, x_full, u)
+    aa = anderson.init(max(system.anderson_m, 1), _flatten(z))
+    _sync_dev(x_full)
+    runtime.initialization_ms += t.elapsed_ms()
+
+    dx_, dz_, du_ = x_full, z, u
+    prev_prim = float("inf")
+    prims, combs = [], []
+    resets = 0
+    cx, cz, cu = x_full, z, u
+    accel = system.accel
+    for _ in range(system.admm_iters):
+        t.reset()
+        cu = (_j_winv_grad(system, cz) if accel
+              else _j_add_prim(system, cu, cx, cz))
+        _sync_dev(cx)
+        runtime.local_ms += t.elapsed_ms()
+
+        t.reset()
+        cx = solve(cz, cu)
+        _sync_dev(cx)
+        runtime.global_ms += t.elapsed_ms()
+        runtime.inner_iters += 1
+
+        t.reset()
+        prim = read(_j_prim_norm(system, cx, cz))
+        if accel and prev_prim < prim:
+            resets += 1
+            cx, cz, cu = dx_, dz_, du_
+            aa = anderson.replace(aa, _flatten(cz))
+            cu = _j_add_prim(system, cu, cx, cz)
+            cx = solve(cz, cu)
+            prim = read(_j_prim_norm(system, cx, cz))
+        prev_prim = prim
+        runtime.acceleration_ms += t.elapsed_ms()
+
+        t.reset()
+        if accel:
+            dx_, du_ = cx, cu
+            dz_ = _update_z(system, cx, cu)
+            aa, zflat = anderson.compute(aa, _flatten(dz_))
+            counts["host_reads"] += 1
+            cz = _unflatten(zflat, dz_)
+        else:
+            last_z = cz
+            cz = _update_z(system, cx, cu)
+            dz_ = cz
+        _sync_dev(cx)
+        runtime.local_ms += t.elapsed_ms()
+
+        if system.collect_comb:
+            if accel:
+                comb_x = solve(dz_, cu)
+                comb_z = _update_z(system, comb_x, cu)
+                comb = read(_j_comb(system, comb_x, comb_z, dz_))
+            else:
+                comb = read(_j_comb(system, cx, cz, last_z))
+        else:
+            comb = float("inf")
+        prims.append(prim)
+        combs.append(comb)
+        if log is not None:
+            counts["host_reads"] += 1
+            log.add(cx.cpu().numpy().ravel())
+        runtime.step_time.append(runtime.local_ms + runtime.global_ms
+                                 + runtime.acceleration_ms)
+        if comb < _EPS_BREAK:
+            break
+
+    v_new = (cx - x) / system.dt
+    return cx, v_new, np.asarray(prims), np.asarray(combs), resets
 
 
 # ----------------------------------------------------------------------------
@@ -530,15 +767,12 @@ def _zxu_body(system: PhysicsSystem, consts, counts=None):
     fi = system.free_idx
     counts = _counts() if counts is None else counts
 
-    def prim_norm(x_full, z):
-        return torch.sqrt(_sqnorm_all(_prim_vec(system, x_full, z)))
-
     def body(carry):
         cx, cu, aa = carry["x"], carry["u"], carry["aa"]
         done = carry["done"]
 
         cz = _update_z(system, cx, cu)
-        prim = prim_norm(cx, cz)
+        prim = _j_prim_norm(system, cx, cz)
         if accel:
             rejected = carry["prev"] < prim
             counts["host_reads"] += 1
@@ -547,7 +781,7 @@ def _zxu_body(system: PhysicsSystem, consts, counts=None):
                 cu, cx = carry["du"], carry["dx"]
                 aa = anderson.reset(aa, _flat_ux(cu, cx[fi]))
                 cz = _update_z(system, cx, cu)
-                prim = prim_norm(cx, cz)
+                prim = _j_prim_norm(system, cx, cz)
         else:
             rejected = torch.zeros((), dtype=torch.bool, device=cx.device)
 
@@ -596,7 +830,90 @@ def _zxu_body(system: PhysicsSystem, consts, counts=None):
 
 def step_zxu(system: PhysicsSystem, x, v, pin_pos, counts=None):
     """One zxu timestep: (x_new, v_new, StepTrace)."""
-    return _run_step(system, _zxu_setup, _zxu_body, x, v, pin_pos, counts)
+    return _run_step(system, x, v, pin_pos, counts)
+
+
+def step_zxu_instrumented(system: PhysicsSystem, x, v, pin_pos,
+                          runtime: RuntimeData, counts=None):
+    """Per-phase instrumented zxu step (JAX physics.py:603-695), as
+    step_xzu_instrumented: local = the z-prox sweep, global = the x-solve,
+    acceleration = the reject test and the AA mixing. The eps-break comes
+    before the u-update and is not recorded (Solver.cpp:188-212); an
+    accelerated step commits default_x. Returns (x_new, v_new, prims,
+    combs, rejects, resets)."""
+    counts = _counts() if counts is None else counts
+    t = MicroTimer()
+    xbar_full, base_full, solve, read = _phase_tools(system, x, v, pin_pos,
+                                                     counts)
+    fi = system.free_idx
+    # Init sweep (zxu Solver.cpp:97-125): z-prox, x-solve, u-update.
+    u = tuple(torch.zeros_like(zb) for zb in system.deform(xbar_full))
+    z = _update_z(system, xbar_full, u)
+    x_full = solve(z, u)
+    u = _j_add_prim(system, u, x_full, z)
+    zu_size = sum(t_.numel() for t_ in u)
+    aa = anderson.init(max(system.anderson_m, 1), _flat_ux(u, x_full[fi]),
+                       effective_dim=zu_size)
+    _sync_dev(x_full)
+    runtime.initialization_ms += t.elapsed_ms()
+
+    accel = system.accel
+    cx, cu = x_full, u
+    dx_, du_ = x_full, u
+    prev_prim = float("inf")
+    prims, combs, rejects = [], [], []
+    resets = 0
+    for _ in range(system.admm_iters):
+        t.reset()
+        cz = _update_z(system, cx, cu)
+        _sync_dev(cx)
+        runtime.local_ms += t.elapsed_ms()
+
+        t.reset()
+        prim = read(_j_prim_norm(system, cx, cz))
+        rejected = 0
+        if accel and prev_prim < prim:
+            resets += 1
+            rejected = 1
+            cu, cx = du_, dx_
+            aa = anderson.reset(aa, _flat_ux(cu, cx[fi]))
+            cz = _update_z(system, cx, cu)
+            prim = read(_j_prim_norm(system, cx, cz))
+        prev_prim = prim
+        runtime.acceleration_ms += t.elapsed_ms()
+
+        t.reset()
+        last_x = cx
+        cx = solve(cz, cu, x_warm=last_x)
+        _sync_dev(cx)
+        runtime.global_ms += t.elapsed_ms()
+        runtime.inner_iters += 1
+
+        comb = read(_j_comb_zxu(system, cx, last_x, cz))
+        if comb < _EPS_BREAK:
+            break
+
+        t.reset()
+        cu = _j_add_prim(system, cu, cx, cz)
+        du_, dx_ = cu, cx
+        if accel:
+            aa, mixed = anderson.compute(aa, _flat_ux(cu, cx[fi]))
+            counts["host_reads"] += 1
+            cu = _unflatten(mixed[:zu_size], cu)
+            cx = base_full.index_copy(0, fi, mixed[zu_size:].reshape(-1, 3))
+        _sync_dev(cx)
+        runtime.acceleration_ms += t.elapsed_ms()
+
+        prims.append(prim)
+        combs.append(comb)
+        rejects.append(rejected)
+        runtime.step_time.append(runtime.local_ms + runtime.global_ms
+                                 + runtime.acceleration_ms)
+
+    x_new = dx_ if accel else cx
+    v_new = (x_new - x) / system.dt
+    return (x_new, v_new, np.asarray(prims), np.asarray(combs),
+            np.asarray(rejects, np.int64), resets)
 
 
 def run_frames(system: PhysicsSystem, x, v, pin_pos, n_frames: int,
@@ -685,6 +1002,13 @@ class PhysicsSolver:
         self._x_host: Optional[np.ndarray] = None
         self._v_host: Optional[np.ndarray] = None
         self._pending_traces: List[StepTrace] = []
+        # Per queued trace: None (the step's time spread uniformly) or
+        # (chunk size, cumulative ms at each chunk boundary) of a chunked
+        # step.
+        self._pending_times: List[Optional[tuple]] = []
+        # Mid-step ADMM state from load_admm_state, consumed by the next
+        # step() (Solver::load replay, Solver.hpp:153-215).
+        self._admm_seed = None
         self.settings = Settings()
         self.initialized = False
         # residual history across steps (for save())
@@ -692,9 +1016,11 @@ class PhysicsSolver:
         self.step_comb: List[float] = []
         self.step_reject: List[int] = []
         self.step_times: List[float] = []
-        self.step_ms: List[float] = []
+        self.step_ms: List[float] = []    # wall ms of each step()/run() step
         self.reset_num = 0
         self.stats = _counts()
+        # per-phase buckets of the instrumented steps (callers may replace it)
+        self.runtime = RuntimeData()
 
     # ---- scene assembly ----
 
@@ -816,12 +1142,6 @@ class PhysicsSolver:
 
     # ---- initialize ----
 
-    @staticmethod
-    def _refuse_unported(s: Settings):
-        if s.trace_chunk > 0:
-            raise NotImplementedError("chunked residual tracing is not "
-                                      "ported yet (trace_chunk must be 0)")
-
     def _collision_batches(self, n, dtype):
         """The collision and self-collision batches, with the JAX package's
         refusals of both in the xzu order."""
@@ -857,7 +1177,6 @@ class PhysicsSolver:
         if settings is not None:
             self.settings = settings
         s = self.settings
-        self._refuse_unported(s)
         if s.timestep_s <= 0.0:
             s.timestep_s = 1.0 / 24.0
         dtype = np.dtype(s.dtype)
@@ -938,33 +1257,78 @@ class PhysicsSolver:
         """One timestep (Solver::step). Updates x, v on the device and
         queues the residual trace; flush_traces()/save() fetch the history.
         Returns the per-iteration trace (device tensors). With dynamic
-        colliders, this step's self-contacts are detected first."""
+        colliders, this step's self-contacts are detected first. A state
+        from load_admm_state seeds this step's ADMM loop; with
+        ``settings.trace_chunk`` > 0 (read here, so it may be set after
+        initialize) the step runs in timed chunks of that many iterations."""
         self._check_ready()
         if self._selfcol_index is not None:
             self._refresh_self_contacts()
         t = MicroTimer()
-        fn = step_xzu if self.order == UpdateOrder.XZU else step_zxu
-        x_new, v_new, trace = fn(self.system, self._x_dev, self._v_dev,
-                                 self._pin_pos_dev(), self.stats)
+        measured = None
+        chunk = int(self.settings.trace_chunk)
+        if self._admm_seed is not None:
+            x_new, v_new, trace = self._step_seeded(self._admm_seed)
+            self._admm_seed = None
+        elif chunk > 0:
+            x_new, v_new, trace, bounds = self._step_chunked(chunk)
+            measured = (chunk, bounds)
+        else:
+            fn = step_xzu if self.order == UpdateOrder.XZU else step_zxu
+            x_new, v_new, trace = fn(self.system, self._x_dev, self._v_dev,
+                                     self._pin_pos_dev(), self.stats)
         self._sync()
-        elapsed = t.elapsed_ms()
+        self._finish_step(x_new, v_new, trace, t.elapsed_ms(), measured)
+        return trace
+
+    def _finish_step(self, x_new, v_new, trace, elapsed_ms, measured=None):
         self._x_dev, self._v_dev = x_new, v_new
         self._x_host = self._v_host = None
         self._pending_traces.append(trace)
-        self.step_ms.append(elapsed)
+        self._pending_times.append(measured)
+        self.step_ms.append(elapsed_ms)
         if self.settings.verbose > 0:
-            print(f"step: {elapsed:.2f}ms, "
+            print(f"step: {elapsed_ms:.2f}ms, "
                   f"reset number = {int(trace.reset_count)}")
-        return trace
+
+    def _step_chunked(self, chunk: int):
+        """The fused step dispatched in chunks of `chunk` iterations, the
+        device synchronized at each chunk boundary, so that the residual
+        file's time column is measured there (every row with chunk 1, as
+        the reference's Solver.hpp:126-151) instead of spread. Returns (x,
+        v, trace, bounds): bounds = cumulative ms at [init, chunk 1, ...]."""
+        x0 = self._x_dev
+        t = MicroTimer()
+        carry, consts = _step_setup(self.system, x0, self._v_dev,
+                                    self._pin_pos_dev(), self.stats)
+        self._sync()
+        bounds = [t.elapsed_ms()]
+        self.runtime.initialization_ms += bounds[0]
+        outs = []
+        done, iters = 0, self.system.admm_iters
+        while done < iters:
+            k = min(chunk, iters - done)
+            carry, ys = _step_scan_chunk(self.system, carry, consts, k,
+                                         self.stats)
+            self._sync()
+            bounds.append(t.elapsed_ms())
+            outs.append(ys)
+            done += k
+        return (*_step_commit(self.system, carry, x0, *_cat_chunks(outs)),
+                bounds)
 
     def run(self, n_frames: int, pin_vel=None):
         """n_frames timesteps, equivalent to n_frames step() calls (each
         after a `set_pins(pins + dt*pin_vel)` when pin_vel is given), for
-        scenes without self-collision (which detects contacts per step)."""
+        scenes without self-collision (which detects contacts per step),
+        without a loaded ADMM state and without chunked tracing."""
         self._check_ready()
         if self._selfcol_index is not None:
             raise RuntimeError("self-collision detects contacts every "
                                "step: use step()")
+        if self._admm_seed is not None or self.settings.trace_chunk > 0:
+            raise RuntimeError("a loaded ADMM state or trace_chunk > 0 "
+                               "needs step()")
         t = MicroTimer()
         pv = None if pin_vel is None else torch.from_numpy(
             np.asarray(pin_vel, self.pin_pos.dtype)).to(self.device)
@@ -981,6 +1345,7 @@ class PhysicsSolver:
         self._x_host = self._v_host = None
         for i in range(int(n_frames)):
             self._pending_traces.append(StepTrace(*(a[i] for a in traces)))
+            self._pending_times.append(None)
             self.step_ms.append(elapsed / n_frames)
         if self.settings.verbose > 0:
             print(f"run({n_frames}): {elapsed:.2f}ms total, "
@@ -1058,23 +1423,213 @@ class PhysicsSolver:
 
     def flush_traces(self):
         """Move queued per-step traces into the residual history (one host
-        fetch); per-iteration times spread each step's time uniformly."""
+        fetch per trace)."""
         if not self._pending_traces:
             return
         n = len(self._pending_traces)
         host = [StepTrace(*(a.cpu().numpy() for a in tr))
                 for tr in self._pending_traces]
-        self._pending_traces = []
-        iters = self.system.admm_iters
-        for trace, elapsed in zip(host, self.step_ms[-n:]):
-            per = elapsed / max(1, iters)
+        measured = self._pending_times
+        self._pending_traces, self._pending_times = [], []
+        for trace, elapsed, meas in zip(host, self.step_ms[-n:], measured):
+            iter_t = self._iter_times(elapsed, meas)
             t0 = self.step_times[-1] if self.step_times else 0.0
             for i in np.nonzero(~np.isnan(trace.prim))[0]:
                 self.step_prim.append(float(trace.prim[i]))
                 self.step_comb.append(float(trace.comb[i]))
                 self.step_reject.append(int(trace.reject[i]))
-                self.step_times.append(t0 + (i + 1) * per)
+                self.step_times.append(t0 + iter_t[i])
             self.reset_num += int(trace.reset_count)
+
+    def _iter_times(self, elapsed, measured):
+        """Per-iteration cumulative ms within one step: a fused step's time
+        spread uniformly; a chunked step's interpolated only inside each
+        measured chunk (every row measured at trace_chunk 1)."""
+        iters = self.system.admm_iters
+        if measured is None:
+            per = elapsed / max(1, iters)
+            return [(i + 1) * per for i in range(iters)]
+        chunk, bounds = measured
+        ts = []
+        for i in range(iters):
+            j, r = divmod(i, chunk)
+            k_j = min(chunk, iters - j * chunk)
+            lo, hi = bounds[j], bounds[j + 1]
+            ts.append(lo + (r + 1) / k_j * (hi - lo))
+        return ts
+
+    def step_instrumented(self, log=None):
+        """One timestep with the RuntimeData buckets accumulated in
+        ``self.runtime`` (RuntimeData::print, Solver.cpp:551-564): a host
+        loop of phases, slower than step(). log (xzu only): a SolverLog fed
+        the per-iteration positions. Returns (prims, combs) as numpy.
+
+        Each iteration's time row is this step's own: the time of the last
+        recorded row plus the phase time this step accumulated up to that
+        iteration (the JAX package indexes runtime.step_time from its start
+        instead, so a second instrumented step repeats the first's rows).
+        Queued traces of earlier steps are flushed first, so the rows stay
+        in order."""
+        self._check_ready()
+        if self._selfcol_index is not None:
+            self._refresh_self_contacts()
+        self.flush_traces()
+        rt = self.runtime
+        n0 = len(rt.step_time)
+        c0 = rt.local_ms + rt.global_ms + rt.acceleration_ms
+        args = (self.system, self._x_dev, self._v_dev, self._pin_pos_dev(),
+                rt)
+        if self.order == UpdateOrder.XZU:
+            x_new, v_new, prims, combs, resets = step_xzu_instrumented(
+                *args, log=log, counts=self.stats)
+            rejects = np.zeros(len(prims), np.int64)
+        else:
+            x_new, v_new, prims, combs, rejects, resets = \
+                step_zxu_instrumented(*args, counts=self.stats)
+        self._x_dev, self._v_dev = x_new, v_new
+        self._x_host = self._v_host = None
+        t0 = self.step_times[-1] if self.step_times else 0.0
+        for i, row in enumerate(rt.step_time[n0:n0 + len(prims)]):
+            self.step_prim.append(float(prims[i]))
+            self.step_comb.append(float(combs[i]))
+            self.step_reject.append(int(rejects[i]))
+            self.step_times.append(t0 + row - c0)
+        self.reset_num += resets
+        if self.settings.verbose > 0:
+            rt.print(self.settings)
+        return prims, combs
+
+    # ---- mid-step ADMM state dump / restore (Solver.hpp:153-215) ----
+    #
+    # Text layout: z, u and last_z are the element blocks concatenated in
+    # batch order, element-major within each block (_flatten_ref); x is all
+    # vertex positions row-major. File 1 = "n" then rows "z u last_z";
+    # file 2 = "n" then rows of x (the reference's ::load).
+
+    def save_admm_state(self, file_zu: str, file_x: str,
+                        at_iteration: int = 0, aa_file: str = None):
+        """Run one timestep, dumping the ADMM state after `at_iteration`
+        iterations as reference-format 16-digit text; the step still
+        completes all admm_iters iterations and commits exactly like
+        step(). A solver seeded with the dump by load_admm_state (admm_iters
+        = the remaining iterations) replays the tail of this step.
+
+        aa_file: an .npz sidecar holding the whole loop carry (AA history,
+        rollback anchors, last residual, counters; keys n_leaves,
+        fingerprint, leaf{i}), so that an accelerated tail replay is
+        bit-equal (the text format carries no AA state). It is this
+        package's own format."""
+        self._check_ready()
+        k, iters = int(at_iteration), self.system.admm_iters
+        if not 0 <= k <= iters:
+            raise ValueError(f"at_iteration {k} is outside [0, {iters}]")
+        if self._selfcol_index is not None:
+            self._refresh_self_contacts()
+        t = MicroTimer()
+        x0 = self._x_dev
+        carry, consts = _step_setup(self.system, x0, self._v_dev,
+                                    self._pin_pos_dev(), self.stats)
+        outs = []
+        if k:
+            carry, ys = _step_scan_chunk(self.system, carry, consts, k,
+                                         self.stats)
+            outs.append(ys)
+        last_z = carry["dz"] if "dz" in carry else carry["z"]
+
+        def host(ts):
+            return _flatten_ref(ts).cpu().numpy()
+        save_admm_state_text(file_zu, file_x, host(carry["z"]),
+                             host(carry["u"]), host(last_z),
+                             carry["x"].cpu().numpy())
+        if aa_file:
+            leaves = [leaf for _, leaf in _tree_leaves(carry)]
+            np.savez_compressed(
+                aa_file, n_leaves=len(leaves),
+                fingerprint=np.array(_carry_fingerprint(carry)),
+                **{f"leaf{i}": leaf.cpu().numpy()
+                   for i, leaf in enumerate(leaves)})
+        if iters - k:
+            carry, ys = _step_scan_chunk(self.system, carry, consts, iters - k,
+                                         self.stats)
+            outs.append(ys)
+        x_new, v_new, trace = _step_commit(self.system, carry, x0,
+                                           *_cat_chunks(outs))
+        self._sync()
+        self._finish_step(x_new, v_new, trace, t.elapsed_ms())
+        return trace
+
+    def load_admm_state(self, file_zu: str, file_x: str,
+                        aa_file: str = None):
+        """Load a mid-step ADMM dump: the NEXT step() starts its ADMM loop
+        from the loaded (z, u, last_z, x) instead of the init sweep and runs
+        admm_iters iterations from there (AA restarts: the reference's dump
+        has no AA state). With the .npz sidecar of save_admm_state the whole
+        carry is restored instead, so an accelerated tail replays bit for
+        bit. Raises ValueError on a size mismatch, like the reference, and
+        on a sidecar saved under another carry structure (checked here, by
+        one init sweep that builds this solver's carry)."""
+        self._check_ready()
+        z, u, last_z, x = load_admm_state_text(file_zu, file_x)
+        sys_ = self.system
+        zeros = torch.zeros((sys_.n_verts, 3), dtype=self._x_dev.dtype,
+                            device=self.device)
+        if z.size != sum(b.numel() for b in sys_.deform(zeros)):
+            raise ValueError("Error: invalid number or values")
+        if x.size != sys_.n_verts * 3:
+            raise ValueError("Error: invalid number or values from file 2")
+        aa_leaves = None
+        if aa_file:
+            with np.load(aa_file) as d:
+                aa_leaves = [d[f"leaf{i}"] for i in range(int(d["n_leaves"]))]
+                saved_fp = str(d["fingerprint"])
+            carry, _ = _step_setup(sys_, self._x_dev, self._v_dev,
+                                   self._pin_pos_dev())
+            expect_fp = _carry_fingerprint(carry)
+            if saved_fp != expect_fp:
+                raise ValueError(
+                    "AA sidecar was saved under a different solver "
+                    "configuration (carry structure mismatch):\n"
+                    f"  saved:    {saved_fp}\n  expected: {expect_fp}")
+        self._admm_seed = (z, u, last_z, x, aa_leaves)
+
+    def _step_seeded(self, seed):
+        """One timestep whose ADMM loop starts from a loaded mid-step state;
+        the step's constants (prediction, pin embedding) come from the
+        current (x, v), as in the step the dump was taken from."""
+        zf, uf, lzf, xf, aa_leaves = seed
+        sys_ = self.system
+        x0 = self._x_dev
+        carry, consts = _step_setup(sys_, x0, self._v_dev,
+                                    self._pin_pos_dev(), self.stats)
+        if aa_leaves is not None:
+            template = [t for _, t in _tree_leaves(carry)]
+            if len(aa_leaves) != len(template) or any(
+                    tuple(t.shape) != leaf.shape
+                    for t, leaf in zip(template, aa_leaves)):
+                raise ValueError("Error: invalid number or values")
+            carry = _tree_unflatten(carry, [
+                torch.from_numpy(np.asarray(leaf)).to(t.device, t.dtype)
+                for t, leaf in zip(template, aa_leaves)])
+        else:
+            dtype, dev = carry["x"].dtype, carry["x"].device
+
+            def dev_t(a):
+                return torch.from_numpy(np.asarray(a)).to(dev, dtype)
+            zt = _unflatten_ref(dev_t(zf), carry["z"])
+            ut = _unflatten_ref(dev_t(uf), carry["u"])
+            x_full = dev_t(xf).reshape(sys_.n_verts, 3)
+            carry = dict(carry, x=x_full, z=zt, u=ut, dx=x_full, du=ut)
+            if "dz" in carry:
+                carry["dz"] = _unflatten_ref(dev_t(lzf), carry["z"])
+                carry["aa"] = anderson.init(sys_.anderson_m, _flatten(zt))
+            else:
+                carry["aa"] = anderson.init(
+                    max(sys_.anderson_m, 1),
+                    _flat_ux(ut, x_full[sys_.free_idx]),
+                    effective_dim=sum(t.numel() for t in ut))
+        carry, ys = _step_scan_chunk(sys_, carry, consts, sys_.admm_iters,
+                                     self.stats)
+        return _step_commit(sys_, carry, x0, *ys)
 
     # ---- persistence (Solver::save, Solver.hpp:126-151) ----
 
@@ -1088,3 +1643,28 @@ class PhysicsSolver:
         save_residual_file(os.path.join(result_dir, name),
                            [t / 1e3 for t in self.step_times],
                            self.step_prim, self.step_comb, reject)
+
+    def save_matrix(self, filename: str):
+        """Dump the global system matrix over the free vertices (the
+        per-coordinate node matrix; Solver::save_matrix, Solver.cpp:501-506)
+        as 16-digit text."""
+        self._check_ready()
+        s = self.settings
+        dt2p = (s.penalty if self.order == UpdateOrder.ZXU else 1.0) \
+            * s.timestep_s ** 2
+        n = self.n_verts
+        A = dt2p * assemble_node_matrix(n, list(self.system.batches))
+        A[np.arange(n), np.arange(n)] += np.concatenate(self.masses)
+        free = self.system.free_idx.cpu().numpy()
+        A_free = A[np.ix_(free, free)]
+        print(f"Saving matrix ({A_free.shape[0]}x{A_free.shape[1]}) "
+              f"to {filename}")
+        np.savetxt(filename, A_free, fmt="%.16g")
+
+    def save_state(self, path: str):
+        np.savez(path, x=self.x, v=self.v)
+
+    def load_state(self, path: str):
+        d = np.load(path)
+        self.x, self.v = d["x"], d["v"]
+        self._refresh_pin_pos()

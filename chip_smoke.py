@@ -50,7 +50,20 @@ non-zero before the final result line):
      self-collision scene (30 frames, and the hash collider forced to
      overflow against the dense one); three accelerated frames of three
      48 x 12 x 12-cube blocks over the plinkohit pit (24,843 vertices),
-     which take the CG path.
+     which take the CG path;
+ 10. instrumentation and state, float64 unless noted: the instrumented step
+     (beams with -a 1 -am 5 and without; windyflag 64 x 64 in zxu, -a 1
+     -am 5) against the fused step on the GPU and against itself on the
+     CPU, with its per-phase RuntimeData split; chunked residual tracing
+     (trace_chunk 10 and 1) bit-equal to the fused steps; save_admm_state
+     at iteration 50 and the replays (the .npz sidecar's accelerated tail
+     bit-equal, the text alone within 1e-11, the GPU's dump on the CPU) on
+     plinkohit's first frame and beams; beams --log-x-star and the AA sweep
+     (test_anderson_admm, 7 settings x 2 frames); the plain geometry solver
+     on the planarity scene (f32 quality, f64 GPU vs CPU, B1's launches on
+     its path); the native library built and held against the NumPy
+     parsers and the f64 CPU closest-point sweep. The bit-for-bit
+     comparisons run with deterministic algorithms on.
 
 ``--phases 1,2,7`` runs only the listed phases (phase 1 always runs); the
 result lines need every phase.
@@ -61,11 +74,14 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1090,18 +1106,24 @@ def phase_plinko(app, name, base, frames, floor_ok):
               "surface")
 
 
+def cloth_file(d, n):
+    """An n x n-cell cloth of 1.9 units (about cloth.obj's extent) written to
+    d/cloth{n}.obj. Returns (path, vertices, triangles)."""
+    from aa_admm_tpu_torch.core.factory import make_plane_grid
+    from aa_admm_tpu_torch.core.meshio import save_obj
+    grid = make_plane_grid(n, n, size=1.9)
+    path = os.path.join(d, f"cloth{n}.obj")
+    save_obj(path, grid.verts, grid.faces)
+    return path, len(grid.verts), len(grid.faces)
+
+
 def phase_windyflag(tmp):
     import dataclasses
     from aa_admm_tpu_torch.apps import windyflag as wf
-    from aa_admm_tpu_torch.core.factory import make_plane_grid
-    from aa_admm_tpu_torch.core.meshio import save_obj
     from aa_admm_tpu_torch.solver import physics as ph
 
     def cloth(n):
-        grid = make_plane_grid(n, n, size=1.9)
-        path = os.path.join(tmp, f"cloth{n}.obj")
-        save_obj(path, grid.verts, grid.faces)
-        return path, len(grid.verts), len(grid.faces)
+        return cloth_file(tmp, n)
 
     path, nv, nf = cloth(64)
     out = {}
@@ -1347,6 +1369,397 @@ def phase_zxu(ck):
           f"none of the port's kernels)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: instrumentation and state, the plain geometry solver, native
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms inside the block: the physics x-step's
+    index_add_ then sums in a fixed order on the card (it uses float atomics
+    otherwise), so that two runs of one step can be compared bit for bit.
+    Solvers built inside the block capture their CUDA graphs there too."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", ".*deterministic.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def valid(a):
+    a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return a[~np.isnan(a)]
+
+
+def beams_solver(dev, accel, iters=100):
+    """The published beams scene with its pins moved once more, as before
+    a step (phase 8)."""
+    from aa_admm_tpu_torch.apps import beams
+    s = beams_settings(accel, iters)
+    solver, stretch = beams.build_scene(s, device=dev)
+    stretch(s.timestep_s)
+    return solver
+
+
+def phase10_makers(tmp):
+    """Solver factories (device, accel, iters) of the three scenes phase 10
+    reuses: beams-published, windyflag 64 x 64, plinkohit-synthetic."""
+    from aa_admm_tpu_torch.apps import plinkohit
+    from aa_admm_tpu_torch.apps import windyflag as wf
+    cloth, _, _ = cloth_file(tmp, 64)
+    hit = block_file(tmp, "hit", (12, 7, 8), 0.15, 0.25, -1.0,
+                     (0.25, 2.5, 0.0))
+    return {
+        "beams-published": beams_solver,
+        "windyflag-synthetic": lambda dev, accel, iters=100: wf.build_scene(
+            zxu_settings(accel, iters), mesh_path=cloth, device=dev),
+        "plinkohit-synthetic": lambda dev, accel, iters=100:
+            plinkohit.build_scene(zxu_settings(accel, iters), mesh_path=hit,
+                                  device=dev)}
+
+
+def first_parting(a, b, rtol=1e-8, atol=1e-9):
+    """The first iteration at which two residual sequences differ beyond
+    the tolerance (or the shorter length when one stops early), None when
+    they agree throughout."""
+    n = min(len(a), len(b))
+    bad = ~np.isclose(a[:n], b[:n], rtol=rtol, atol=atol)
+    if bad.any():
+        return int(np.argmax(bad))
+    return None if len(a) == len(b) else n
+
+
+def check_instrumented(name, make, accel):
+    """The instrumented step on the GPU against the fused step on the GPU
+    (tests/test_instrumented.py's tolerances) and against the instrumented
+    step on the CPU (rtol 1e-8, atol 1e-9, phase 8's bound, and equal
+    resets). With Anderson acceleration a reject test that compares two
+    residuals at roundoff's level can go either way, and the runs part
+    from there: that is accepted after a common head of 40 iterations, and
+    the parting iteration is printed with its residual. Prints the
+    RuntimeData split per iteration."""
+    with deterministic():
+        fused, inst = make("cuda", accel), make("cuda", accel)
+        tr = fused.step()
+        t0 = time.perf_counter()
+        prims_i, combs_i = inst.step_instrumented()
+        secs = time.perf_counter() - t0
+    pf = valid(tr.prim)
+    n = min(len(pf), len(prims_i))
+    check(n > 0 and np.allclose(pf[:n], prims_i[:n], rtol=1e-9),
+          f"{name}: instrumented prims differ from the fused step's")
+    check(np.allclose(fused.x, inst.x, rtol=1e-9, atol=1e-12),
+          f"{name}: instrumented x differs from the fused step's")
+    check(int(tr.reset_count) == inst.reset_num,
+          f"{name}: instrumented resets {inst.reset_num} != fused "
+          f"{int(tr.reset_count)}")
+    cpu = make("cpu", accel)
+    t0 = time.perf_counter()
+    prims_c, combs_c = cpu.step_instrumented()
+    secs_c = time.perf_counter() - t0
+    part = [first_parting(prims_i, prims_c), first_parting(combs_i, combs_c)]
+    part = min([k for k in part if k is not None], default=None)
+    m = min(len(prims_c), len(prims_i)) if part is None else part
+    dp = float(np.max(np.abs(prims_i[:m] - prims_c[:m]) / prims_c[:m]))
+    dc = float(np.max(np.abs(combs_i[:m] - combs_c[:m]) / combs_c[:m]))
+    agree = part is None and inst.reset_num == cpu.reset_num
+    rt = inst.runtime
+    it = max(rt.inner_iters, 1)
+    print(f"  {name} {'-a 1 -am 5' if accel else 'no acceleration'}, "
+          f"instrumented step, {len(prims_i)} iterations: GPU "
+          f"{secs * 1e3:.1f} ms ({secs * 1e3 / it:.2f} ms/iteration), CPU "
+          f"{secs_c * 1e3:.1f} ms; fused GPU {fused.step_ms[-1]:.1f} ms; "
+          f"vs fused max |x diff| {np.abs(fused.x - inst.x).max():.3e}; GPU "
+          f"vs CPU max rel prim {dp:.3e}, comb {dc:.3e}"
+          + ("" if part is None else
+             f" over the first {part} iterations (they part at iteration "
+             f"{part}, prim {prims_c[min(part, len(prims_c) - 1)] / prims_c[0]:.3e} "
+             f"of the first)") + f", resets {inst.reset_num} / {cpu.reset_num}")
+    print(f"  {name} RuntimeData per iteration (GPU, device synchronized "
+          f"at each phase's end): global {rt.global_ms / it:.3f} ms, local "
+          f"{rt.local_ms / it:.3f} ms, acceleration "
+          f"{rt.acceleration_ms / it:.3f} ms, initialization "
+          f"{rt.initialization_ms:.3f} ms once; {inst.stats['host_reads']} "
+          f"host reads")
+    check(agree or (accel and part is not None and part >= 40),
+          f"{name}: instrumented GPU and CPU differ (prim {dp}, comb {dc}, "
+          f"from iteration {part}, resets {inst.reset_num} / "
+          f"{cpu.reset_num})")
+    return rt
+
+
+def check_chunked(name, make):
+    """Two accelerated steps with trace_chunk 10 and 1 (set after
+    initialize) against the fused steps, bit for bit; time rows strictly
+    increasing; ms per step of the second step (the first captures the
+    graphs)."""
+    free = []
+    for _ in range(2):      # the fused step twice without deterministic mode
+        s = make("cuda", True)
+        s.step()
+        s.step()
+        free.append(s)
+    out = {}
+    with deterministic():
+        for chunk in (0, 10, 1):
+            s = make("cuda", True)
+            s.settings.trace_chunk = chunk
+            s.step()
+            s.step()
+            s.flush_traces()
+            out[chunk] = s
+    ref = out[0]
+    print(f"  {name} fused twice from one state without deterministic "
+          f"algorithms: max |x diff| {np.abs(free[0].x - free[1].x).max():.3e}"
+          f"; ms per step (second step) {free[0].step_ms[-1]:.1f} and "
+          f"{free[1].step_ms[-1]:.1f}, with them {ref.step_ms[-1]:.1f}")
+    for chunk in (10, 1):
+        s = out[chunk]
+        t = s.step_times
+        check(np.array_equal(s.x, ref.x) and s.step_prim == ref.step_prim
+              and s.step_comb == ref.step_comb
+              and s.step_reject == ref.step_reject,
+              f"{name}: trace_chunk {chunk} differs from the fused step")
+        check(all(a < b for a, b in zip(t, t[1:])),
+              f"{name}: trace_chunk {chunk} time rows not increasing")
+    print(f"  {name} chunked tracing, 2 accelerated steps, bit-equal to "
+          f"fused: ms per step (second step) fused "
+          f"{ref.step_ms[-1]:.1f}, chunk 10 {out[10].step_ms[-1]:.1f}, "
+          f"chunk 1 {out[1].step_ms[-1]:.1f} (deterministic algorithms on)")
+
+
+def check_state(name, make, tmp):
+    """save_admm_state at iteration 50 of 100 and replays: the accelerated
+    tail from the sidecar bit for bit, the non-accelerated tail from the
+    text alone within 1e-11; then the GPU's text dump replayed on the CPU
+    within phase 8's bound."""
+    f = {k: os.path.join(tmp, f"{name}-{k}") for k in
+         ("zu", "x", "aa.npz", "zu0", "x0")}
+    with deterministic():
+        a = make("cuda", True)
+        a.save_admm_state(f["zu"], f["x"], at_iteration=50, aa_file=f["aa.npz"])
+        ref = make("cuda", True)
+        ref.step()
+        tail = make("cuda", True, 50)
+        tail.load_admm_state(f["zu"], f["x"], aa_file=f["aa.npz"])
+        tail.step()
+        b = make("cuda", False)
+        b.save_admm_state(f["zu0"], f["x0"], at_iteration=50)
+        text = make("cuda", False, 50)
+        text.load_admm_state(f["zu0"], f["x0"])
+        text.step()
+    for s in (a, tail):
+        s.flush_traces()
+    check(np.array_equal(a.x, ref.x),
+          f"{name}: the dumping step does not commit like step()")
+    check(np.array_equal(tail.x, a.x),
+          f"{name}: the sidecar replay differs from the uninterrupted step "
+          f"(max {np.abs(tail.x - a.x).max()})")
+    d_text = float(np.abs(text.x - b.x).max())
+    check(d_text <= 1e-11, f"{name}: the text replay differs by {d_text}")
+    cpu = make("cpu", False, 50)
+    cpu.load_admm_state(f["zu0"], f["x0"])
+    cpu.step()
+    d_cpu = float(np.abs(cpu.x - b.x).max())
+    check(np.allclose(cpu.x, b.x, rtol=1e-8, atol=1e-9),
+          f"{name}: the GPU dump replayed on the CPU differs by {d_cpu}")
+    print(f"  {name} state at iteration 50 of 100: sidecar replay of the "
+          f"accelerated tail bit-equal ({a.reset_num} resets in the step), "
+          f"text replay without acceleration max |x diff| "
+          f"{d_text:.3e}, the GPU's dump replayed on the CPU {d_cpu:.3e}")
+
+
+def check_sweep(tmp):
+    """beams --log-x-star at full width (a 2,000-iteration star step, then
+    the accelerated step instrumented), and the AA sweep over its seven
+    settings at two frames each."""
+    from aa_admm_tpu_torch.apps import beams, test_anderson_admm
+    d = os.path.join(tmp, "log")
+    t0 = time.perf_counter()
+    beams.main(["-a", "1", "-am", "5", "-v", "0", "--log-x-star"],
+               n_frames=1, result_dir=d, device="cuda")
+    secs = time.perf_counter() - t0
+    log = np.loadtxt(os.path.join(d, "solverlog-5.txt"))
+    print(f"  beams --log-x-star -a 1 -am 5 (2,000-iteration star step, one "
+          f"instrumented step, one frame): {secs:.1f} s; {len(log)} rows, "
+          f"error {log[0, 1]:.4g} -> {log[-1, 1]:.4e} in {log[-1, 0]:.1f} ms")
+    # one row per recorded iteration: 100 unless the eps-break fired
+    check(log.ndim == 2 and 0 < len(log) <= 100 and log.shape[1] == 2
+          and np.isfinite(log).all(), f"log-x-star: solverlog shape {log.shape}")
+    check(log[0, 1] == 1.0 and log[-1, 1] < 0.05,
+          f"log-x-star: errors {log[0, 1]} -> {log[-1, 1]} (want 1 -> < 0.05)")
+    d = os.path.join(tmp, "sweep")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        test_anderson_admm.main(["2", d])
+    secs = time.perf_counter() - t0
+    names = sorted(os.listdir(d))
+    rows = {n: np.loadtxt(os.path.join(d, n)) for n in names}
+    print(f"  test_anderson_admm, 7 settings x 2 frames: {secs:.1f} s; rows "
+          f"{ {n: len(r) for n, r in rows.items()} }")
+    check(names == [f"residual-{m}.txt" for m in range(1, 7)]
+          + ["residual-no.txt"], f"sweep: files {names}")
+    check(all(100 < len(r) <= 200 and r.shape[1] == 3
+              and np.isfinite(r).all() for r in rows.values())
+          and len(rows["residual-no.txt"]) == 200,
+          "sweep: a residual file is malformed")
+
+
+def run_plain(ck, device, dtype, iters):
+    """The plain AA-ADMM solver on the planarity scene: PlaneBatch hard, a
+    RefSurfaceBatch of weight 10 over the 9,800-triangle reference soft
+    (2-stage projection: B1's indexed entry), penalty 1, Anderson m = 5.
+    Its residual does not converge on this scene, in the JAX package
+    either; the planarity error falls. Returns (solver, launch counts,
+    seconds)."""
+    from aa_admm_tpu_torch.ops.constraints import PlaneBatch, RefSurfaceBatch
+    from aa_admm_tpu_torch.solver.geometry_plain import GeometrySolver
+    mesh, ref_v, ref_f = planarity_scene()
+    n = mesh.n_verts()
+    s = GeometrySolver(device=device)
+    s.dtype = dtype
+    s.add_hard_constraint(PlaneBatch.create(mesh.faces, weight=1.0))
+    s.add_soft_constraint(RefSurfaceBatch.create(list(range(n)), 10.0, ref_v,
+                                                 ref_f))
+    s.setup_ADMM(n, penalty_param=1.0)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    s.solve_ADMM(mesh.verts, 1e-10, iters, 5)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return s, ck.launch_counts(), time.perf_counter() - t0
+
+
+def phase_plain(ck):
+    """f32 for 100 iterations on the GPU (the max planarity error must fall),
+    then f64 for 20 on the GPU and the CPU (function values within 1e-8,
+    equal resets). Returns the f32 run's launch counts."""
+    from aa_admm_tpu_torch.apps.planarity_opt import check_planarity_error
+    mesh = planarity_scene()[0]
+    s, counts, secs = run_plain(ck, "cuda", np.float32, 100)
+    out = s.get_solution()
+    fv = np.asarray(s.function_values)
+    with contextlib.redirect_stdout(io.StringIO()):
+        pl_b, _ = check_planarity_error(mesh)
+        pl_a, _ = check_planarity_error(mesh, out)
+    st = s.stats
+    print(f"  plain solver f32 GPU, 100 iterations ({mesh.n_verts()} "
+          f"vertices, 9,800 reference triangles): {secs:.2f} s, "
+          f"{st['solve_s'] / st['iters'] * 1e3:.2f} ms/iteration, "
+          f"{st['resets']} resets, {st['host_reads'] / st['iters']:.2f} host "
+          f"reads/iteration, B1 launches {counts['ericson_idx']} "
+          f"({counts['ericson_idx'] / st['iters']:.2f}/iteration), launches "
+          f"{counts}; residual {fv[0]:.4e} -> {fv[-1]:.4e} (least "
+          f"{fv.min():.4e}); planarity error max {pl_b.max():.4e} -> "
+          f"{pl_a.max():.4e}, mean {pl_b.mean():.4e} -> {pl_a.mean():.4e}")
+    check(np.isfinite(out).all() and np.isfinite(fv).all(),
+          "plain f32: non-finite values")
+    check(pl_a.max() < pl_b.max(),
+          "plain f32: the max planarity error did not fall")
+    check(counts["ericson_idx"] > 0,
+          f"plain f32: B1 was not launched on the plain path: {counts}")
+    g, c64, secs_g = run_plain(ck, "cuda", np.float64, 20)
+    c, _, secs_c = run_plain(ck, "cpu", np.float64, 20)
+    fg, fc = np.asarray(g.function_values), np.asarray(c.function_values)
+    rel = float(np.max(np.abs(fg - fc) / np.abs(fc)))
+    print(f"  plain solver f64, 20 iterations: GPU {secs_g:.2f} s, CPU "
+          f"{secs_c:.2f} s; max rel fv diff {rel:.3e}, resets GPU "
+          f"{g.stats['resets']} CPU {c.stats['resets']}, GPU launches {c64}")
+    check(len(fg) == len(fc) == 20 and rel <= 1e-8,
+          f"plain f64: GPU and CPU function values differ by {rel}")
+    check(g.stats["resets"] == c.stats["resets"],
+          "plain f64: reset counts differ")
+    check(c64["ericson_idx"] > 0, f"plain f64: B1 was not launched: {c64}")
+    return counts
+
+
+def phase_native(tmp):
+    """Build the native library here; its parsers against the NumPy parsers
+    on phase 9's mesh files, its AABB tree against the port's f64 CPU
+    brute-force sweep."""
+    from aa_admm_tpu_torch import native
+    from aa_admm_tpu_torch.core import meshio
+    from aa_admm_tpu_torch.ops.closest_point import closest_point_on_mesh
+    built_before = native.lib_path().exists()
+    t0 = time.perf_counter()
+    path = native.build()
+    t_build = time.perf_counter() - t0
+    check(native.available(), "native: the library did not load")
+    cloth, _, _ = cloth_file(tmp, 64)
+    hit = block_file(tmp, "hit", (12, 7, 8), 0.15, 0.25, -1.0,
+                     (0.25, 2.5, 0.0))
+    nv, nt = native.load_obj_native(cloth)
+    py = meshio.load_obj_numpy(cloth)
+    check(np.array_equal(nv, py.verts) and np.array_equal(nt, py.faces),
+          "native: OBJ parse differs from the NumPy parser")
+    ev, et = native.load_elenode_native(hit)
+    py = meshio.load_elenode_numpy(hit)
+    check(np.array_equal(ev, py.verts) and np.array_equal(et, py.tets),
+          "native: .ele/.node parse differs from the NumPy parser")
+    _, ref_v, ref_f = planarity_scene()
+    g = np.random.default_rng(4)
+    lo, hi = ref_v.min(0), ref_v.max(0)
+    q = g.uniform(lo - 1.0, hi + 1.0, size=(10000, 3))
+    t0 = time.perf_counter()
+    pts, sqd = native.AabbTree(ref_v, ref_f).closest_points(q)
+    t_tree = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    twin = closest_point_on_mesh(torch.from_numpy(q),
+                                 torch.from_numpy(ref_v[ref_f])).numpy()
+    t_twin = time.perf_counter() - t0
+    dq = float(np.abs(pts - twin).max())
+    dd = float(np.abs(sqd - ((q - twin) ** 2).sum(1)).max())
+    how = ("built before this phase, at the run's first mesh load"
+           if built_before else f"built in {t_build:.1f} s")
+    print(f"  native: {os.path.basename(str(path))} {how}; "
+          f"OBJ ({len(nv)} vertices) and .ele/.node ({len(ev)} vertices, "
+          f"{len(et)} tets) equal to the NumPy parsers; AabbTree 10,000 "
+          f"queries x {len(ref_f)} triangles {t_tree * 1e3:.1f} ms against "
+          f"the f64 CPU sweep {t_twin:.1f} s: max |point diff| {dq:.3e}, "
+          f"max |sqdist diff| {dd:.3e}")
+    check(dq <= 1e-12 and dd <= 1e-12,
+          f"native: AabbTree differs from the CPU sweep ({dq}, {dd})")
+
+
+def phase_state(ck):
+    """Phase 10: instrumented steps, chunked tracing, ADMM state, SolverLog
+    and the AA sweep, the plain geometry solver, the native library.
+    Returns the plain solver's f32 launch counts."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="smoke_state_")
+    try:
+        makers = phase10_makers(tmp)
+        beams_m, wind_m = makers["beams-published"], makers["windyflag-synthetic"]
+        t0 = time.perf_counter()
+        check_instrumented("beams-published", beams_m, True)
+        check_instrumented("beams-published", beams_m, False)
+        check_instrumented("windyflag-synthetic", wind_m, True)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        for name in ("windyflag-synthetic", "beams-published"):
+            check_chunked(name, makers[name])
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        for name in ("plinkohit-synthetic", "beams-published"):
+            check_state(name, makers[name], tmp)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        check_sweep(tmp)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        counts = phase_plain(ck)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        phase_native(tmp)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def main(argv):
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1354,7 +1767,7 @@ def main(argv):
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from aa_admm_tpu_torch.ops import cuda_kernels as ck
-    want = set(range(1, 10))
+    want = set(range(1, 11))
     if argv[:1] == ["--phases"] and len(argv) == 2:
         want = {1} | {int(a) for a in argv[1].split(",")}
     elif argv:
@@ -1424,7 +1837,14 @@ def main(argv):
         phase("9 physics, zxu: plinkohit, plinkopony, windyflag, "
               "self-collision, CG size", t0)
 
-    if want != set(range(1, 10)):
+    if 10 in want:
+        t0 = time.perf_counter()
+        plain_counts = phase_state(ck)
+        print(f"  B1 (indexed entry) launches on the plain solver's path, "
+              f"f32, 100 iterations: {plain_counts['ericson_idx']}")
+        phase("10 instrumentation and state, plain geometry, native", t0)
+
+    if want != set(range(1, 11)):
         print(f"  total {time.perf_counter() - T0:.1f} s; phases "
               f"{sorted(want)} only, so no result lines")
         return 3

@@ -55,7 +55,7 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in out.stdout
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from aa_admm_tpu_torch import resolve_device
     from aa_admm_tpu_torch.apps import wire_mesh_opt as wm
     from aa_admm_tpu_torch.solver.geometry import ALMGeometrySolver
@@ -70,6 +70,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         wm.main(["a.obj", "b.obj", "o.txt", "out.obj"])
     assert ALMGeometrySolver(device="cpu").device.type == "cpu"
+    from aa_admm_tpu_torch.apps import test_anderson_admm
+    from aa_admm_tpu_torch.solver.geometry_plain import GeometrySolver
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GeometrySolver()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        test_anderson_admm.main(["1", str(tmp_path)])
+    assert GeometrySolver(device="cpu").device.type == "cpu"
+    # the native library is host code: it answers without a card (the
+    # port's brute-force sweep on CPU tensors where g++ is missing)
+    from aa_admm_tpu_torch import native
+    tri = np.array([[0.0, 0, 0], [1, 0, 0], [0, 1, 0]])
+    pts = native.host_closest_points(tri, np.array([[0, 1, 2]]),
+                                     np.array([[0.2, 0.2, 1.0]]))
+    np.testing.assert_allclose(pts, [[0.2, 0.2, 0.0]], atol=1e-15)
 
 
 def test_precision_flags_set_on_import():

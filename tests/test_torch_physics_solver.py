@@ -132,7 +132,7 @@ def test_pins_hold_and_bodies_fall():
 def test_initialize_refuses_unported_parts():
     """zxu and wind initialize (and step); obstacles, collision terms and
     dynamic colliders with xzu raise ValueError, as in the JAX package;
-    trace_chunk > 0 is not ported yet."""
+    trace_chunk > 0 initializes and steps (chunked residual tracing)."""
     mesh = make_tet_blocks(2, 1, 1)
     s = _settings(False, 2)
 
@@ -165,8 +165,10 @@ def test_initialize_refuses_unported_parts():
             sv.initialize(s)
     sv = fresh()
     s.trace_chunk = 4
-    with pytest.raises(NotImplementedError):
-        sv.initialize(s)
+    assert sv.initialize(s)
+    sv.step()
+    sv.flush_traces()
+    assert len(sv.step_prim) == s.admm_iters and np.isfinite(sv.x).all()
 
 
 def _mesh_files(tmp_path):
