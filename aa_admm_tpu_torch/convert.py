@@ -26,8 +26,15 @@ from .solver.multigrid import TwoLevelPrecond
 from .solver.physics import PhysicsSystem, WindForce
 
 
+_TABLES = ("inv_idx", "inv_mask")
+
+
 def _get(obj, name):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _has(obj, name):
+    return name in obj if isinstance(obj, dict) else hasattr(obj, name)
 
 
 def _tensor(a, device, dtype=None):
@@ -40,9 +47,14 @@ def _tensor(a, device, dtype=None):
 
 def _nested(cls, obj, device):
     """A port dataclass of tensors (and scalars) from an object or dict
-    holding its fields."""
+    holding its fields. The gather-form tables (`inv_idx`, `inv_mask`),
+    which the JAX object may lack or hold as None, then keep their default
+    (the port object builds its own); any other field it lacks raises."""
     kw = {}
     for f in dataclasses.fields(cls):
+        if f.name in _TABLES and (not _has(obj, f.name)
+                                  or _get(obj, f.name) is None):
+            continue
         v = _get(obj, f.name)
         kw[f.name] = (v if isinstance(v, (int, float, str))
                       else _tensor(v, device))
@@ -77,8 +89,9 @@ def batch_from_numpy(kind, fields: dict, device="cpu"):
     "RefSurfaceBatch") or the port class; `fields` maps field names to NumPy
     arrays (or Python scalars and strings for the static fields) and may
     hold "_host", the batch's host-mirror dict. Integer arrays become int64;
-    None fields and fields the port does not have (the gather-form adjoint
-    tables) are dropped."""
+    fields the port does not have are dropped. The gather-form adjoint
+    tables (`inv_idx`, `inv_mask`) are carried across where the JAX batch
+    has them; where it holds None, the port batch builds its own."""
     cls = getattr(constraints, kind) if isinstance(kind, str) else kind
     return _batch(cls, fields, device)
 
@@ -126,7 +139,8 @@ def physics_system_from_numpy(fields: dict, device="cpu") -> PhysicsSystem:
 
 def two_level_from_numpy(agg, Ac_inv, inv_diag, device="cpu",
                          dtype=None) -> TwoLevelPrecond:
-    """The port's two-level preconditioner from its three arrays."""
+    """The port's two-level preconditioner from its three arrays (its
+    restriction's table is built from agg)."""
     dt = torch_dtype(dtype) if dtype is not None else None
     return TwoLevelPrecond(agg=_tensor(agg, device),
                            Ac_inv=_tensor(Ac_inv, device, dt),

@@ -4,8 +4,9 @@ virtual hierarchy (Geometry/Constraint.h:48-414).
 
 Each batch is a frozen dataclass of tensors with
   * ``transform(x)`` — gather + invariance transform to a block (C, K, 3);
-  * ``scatter(t, n)`` — D^T applied to a block (``index_add_``; on CUDA the
-    summation order varies from run to run);
+  * ``scatter(t, n)`` — D^T applied to a block, in gather form over the
+    batch's inverse table (``inv_idx``/``inv_mask``, built on the host when
+    the batch is made): the same bits on every run, on every device;
   * ``project(p)`` — the constraint projection.
 
 Weights: each constraint carries w = sqrt(weight) (Constraint.h:62-68).
@@ -23,7 +24,8 @@ import numpy as np
 import torch
 
 from ._batchutil import (  # noqa: F401 (re-export)
-    _host_mirror, _scatter_rows, _t, cast_floats, hostarr, torch_dtype)
+    GatherAdjoint, _host_mirror, _t, cast_floats, hostarr, torch_dtype,
+    with_gather_adjoint)
 from .closest_point import (build_tri_groups, closest_point_cached,
                             closest_point_cached_group, closest_point_on_mesh,
                             closest_point_on_mesh_2stage, cp_cache_group_init,
@@ -52,16 +54,22 @@ def _pad_rows(rows, pad_val=0):
 
 
 @dataclasses.dataclass(frozen=True)
-class PlaneBatch:
+class PlaneBatch(GatherAdjoint):
     """Per-face best-fit-plane projection, MEAN_CENTERING transform
     (PlaneConstraint, Constraint.h:396-414; JAX constraints.py:74-152).
     Faces padded to the largest valence; padded slots point at vertex 0 and
-    are masked to zero in every transform, scatter and projection."""
+    are masked to zero in every transform, scatter and projection (and
+    left out of the inverse table)."""
 
     idx: torch.Tensor    # (C, K) int64, padded
     mask: torch.Tensor   # (C, K) bool
     count: torch.Tensor  # (C,) float — valence
     w: torch.Tensor      # (C,)
+    inv_idx: Optional[torch.Tensor] = None   # (n, Kv) gather-form adjoint
+    inv_mask: Optional[torch.Tensor] = None  # (n, Kv)
+
+    def _adjoint_index(self):
+        return self.idx, self.mask, self.w.dtype
 
     @classmethod
     def create(cls, faces, weight, dtype=np.float64):
@@ -97,7 +105,7 @@ class PlaneBatch:
         tm = t * m
         mean = tm.sum(1) / self.count[:, None]
         tc = (tm - mean[:, None, :]) * m
-        return _scatter_rows(tc.reshape(-1, 3), self.idx.reshape(-1), n_verts)
+        return self._scatter(tc.reshape(-1, 3), n_verts)
 
     def project(self, p):
         """Subtract the best-fit-plane normal component: the normal is the
@@ -115,7 +123,7 @@ class PlaneBatch:
 
 
 @dataclasses.dataclass(frozen=True)
-class AngleBatch:
+class AngleBatch(GatherAdjoint):
     """3-point angle clamp to [min,max] radians, SUBTRACT_FIRST transform
     (AngleConstraint, Constraint.h:220-296). Block shape (C, 2, 3)."""
 
@@ -123,6 +131,8 @@ class AngleBatch:
     w: torch.Tensor          # (C,)
     min_angle: torch.Tensor  # (C,)
     max_angle: torch.Tensor  # (C,)
+    inv_idx: Optional[torch.Tensor] = None   # (n, K) gather-form adjoint
+    inv_mask: Optional[torch.Tensor] = None  # (n, K)
 
     @classmethod
     def create(cls, triples, weight, min_radian, max_radian, dtype=np.float64):
@@ -151,8 +161,7 @@ class AngleBatch:
 
     def scatter(self, t, n_verts):
         contrib = torch.cat([-(t[:, 0] + t[:, 1])[:, None, :], t], dim=1)
-        return _scatter_rows(contrib.reshape(-1, 3), self.idx.reshape(-1),
-                             n_verts)
+        return self._scatter(contrib.reshape(-1, 3), n_verts)
 
     def project(self, p):
         """Closed-form coplanar rotation projection (Constraint.h:243-291)."""
@@ -200,13 +209,15 @@ class AngleBatch:
 
 
 @dataclasses.dataclass(frozen=True)
-class EdgeLengthBatch:
+class EdgeLengthBatch(GatherAdjoint):
     """Edge vector projected to target length, SUBTRACT_FIRST
     (EdgeLengthConstraint, Constraint.h:194-218). Block (C, 1, 3)."""
 
     idx: torch.Tensor      # (C, 2)
     w: torch.Tensor        # (C,)
     target: torch.Tensor   # (C,)
+    inv_idx: Optional[torch.Tensor] = None   # (n, K) gather-form adjoint
+    inv_mask: Optional[torch.Tensor] = None  # (n, K)
 
     @classmethod
     def create(cls, pairs, weight, target_length, dtype=np.float64):
@@ -231,8 +242,7 @@ class EdgeLengthBatch:
 
     def scatter(self, t, n_verts):
         contrib = torch.cat([-t, t], dim=1)  # (C, 2, 3)
-        return _scatter_rows(contrib.reshape(-1, 3), self.idx.reshape(-1),
-                             n_verts)
+        return self._scatter(contrib.reshape(-1, 3), n_verts)
 
     def project(self, p):
         e = p[:, 0]
@@ -242,13 +252,15 @@ class EdgeLengthBatch:
 
 
 @dataclasses.dataclass(frozen=True)
-class ClosenessBatch:
+class ClosenessBatch(GatherAdjoint):
     """Pin a vertex toward a target, IDENTITY transform (ClosenessConstraint,
     Constraint.h:299-326, implemented correctly as in the JAX package)."""
 
     idx: torch.Tensor     # (C,)
     w: torch.Tensor       # (C,)
     target: torch.Tensor  # (C, 3)
+    inv_idx: Optional[torch.Tensor] = None   # (n, K) gather-form adjoint
+    inv_mask: Optional[torch.Tensor] = None  # (n, K)
 
     @classmethod
     def create(cls, idx, weight, targets, dtype=np.float64):
@@ -270,14 +282,14 @@ class ClosenessBatch:
         return np.asarray(x, np.float64)[hostarr(self, 'idx')][:, None, :]
 
     def scatter(self, t, n_verts):
-        return _scatter_rows(t[:, 0], self.idx, n_verts)
+        return self._scatter(t[:, 0], n_verts)
 
     def project(self, p):
         return self.target[:, None, :].expand(p.shape)
 
 
 @dataclasses.dataclass(frozen=True)
-class RefSurfaceBatch:
+class RefSurfaceBatch(GatherAdjoint):
     """Closest-point projection of vertices onto a fixed reference trimesh
     (PointToRefSurfaceConstraint, Constraint.h:328-394). Block (C, 1, 3)."""
 
@@ -294,6 +306,8 @@ class RefSurfaceBatch:
     tile: int = 2048
     cp_groups: int = 6          # NG candidate subgroups per query
     cp_sub: int = 16            # triangles per subgroup
+    inv_idx: Optional[torch.Tensor] = None   # (n, K) gather-form adjoint
+    inv_mask: Optional[torch.Tensor] = None  # (n, K)
 
     @classmethod
     def create(cls, idx, weight, ref_verts, ref_faces, dtype=np.float64,
@@ -330,7 +344,7 @@ class RefSurfaceBatch:
         return np.asarray(x, np.float64)[hostarr(self, 'idx')][:, None, :]
 
     def scatter(self, t, n_verts):
-        return _scatter_rows(t[:, 0], self.idx, n_verts)
+        return self._scatter(t[:, 0], n_verts)
 
     def project(self, p):
         if self.tri_verts.shape[0] > _CP_2STAGE_THRESHOLD:

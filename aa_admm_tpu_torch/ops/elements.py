@@ -6,8 +6,10 @@ aa_admm_tpu/ops/elements.py:1-434, the whole module: ``m2p``/``p2m``,
 One batch holds all elements of one type and material (the reference's
 per-element ``EnergyTerm`` hierarchy, admm_anderson_xzu/src/EnergyTerm.hpp:
 67-213). The reduction matrix D never exists: ``deform`` computes D x as a
-gather and small per-element products, ``scatter`` applies D^T with
-``index_add_`` (on CUDA, float atomics in a varying order).
+gather and small per-element products, ``scatter`` applies D^T in gather
+form over the batch's inverse table (``inv_idx``/``inv_mask``, built on the
+host when the batch is made; ops/_batchutil.py), so it sums in one fixed
+order on every run and device.
 
 z-blocks are in PLANE FORM, as in the JAX package: a rank-2 tensor (C, E)
 whose rows are the C components of the per-element quantity (row-major over
@@ -23,13 +25,14 @@ logical (E, *zdim) view through ``p2m``/``m2p``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..core.config import Lame
 from . import prox as proxops
-from ._batchutil import _host_mirror, _scatter_rows, _t
+from ._batchutil import GatherAdjoint, _host_mirror, _t
 from .sdf import SdfScene
 
 
@@ -44,7 +47,7 @@ def p2m(p, zdim):
 
 
 @dataclasses.dataclass(frozen=True)
-class TetBatch:
+class TetBatch(GatherAdjoint):
     """All tets of one material; weight w = sqrt(k*vol) per element
     (TetEnergyTerm.cpp:63-64)."""
 
@@ -57,8 +60,13 @@ class TetBatch:
     k: torch.Tensor        # (E,) bulk modulus
     kind: str = "linear"   # linear | neohookean | stvk
     svd_method: str = "jacobi"
+    inv_idx: Optional[torch.Tensor] = None   # (n, K) gather-form adjoint
+    inv_mask: Optional[torch.Tensor] = None  # (n, K)
 
     zdim = (3, 3)
+
+    def _adjoint_index(self):
+        return self.tets, None, self.w.dtype
 
     @classmethod
     def from_mesh(cls, verts: np.ndarray, tets: np.ndarray, lame: Lame,
@@ -102,8 +110,7 @@ class TetBatch:
               + T[:, None, 2] * Bt[None, :, 2])            # (coord i, edge k, E)
         v0 = -(dE[:, 0] + dE[:, 1] + dE[:, 2])             # (i, E)
         contrib = torch.cat([v0[:, None], dE], dim=1)      # (i, vertex, E)
-        return _scatter_rows(contrib.permute(2, 1, 0).reshape(-1, 3),
-                             self.tets.reshape(-1), n_verts)
+        return self._scatter(contrib.permute(2, 1, 0).reshape(-1, 3), n_verts)
 
     def _check_kind(self):
         if self.kind not in ("linear", "neohookean", "stvk"):
@@ -146,7 +153,7 @@ class TetBatch:
 
 
 @dataclasses.dataclass(frozen=True)
-class TriBatch:
+class TriBatch(GatherAdjoint):
     """Cloth triangles; w = sqrt(k*area) (TriEnergyTerm.cpp:50-51)."""
 
     tris: torch.Tensor      # (E, 3) int64
@@ -159,8 +166,13 @@ class TriBatch:
     limit_min: torch.Tensor
     limit_max: torch.Tensor
     variant: str = "zxu"    # strain-limiting style: xzu | zxu
+    inv_idx: Optional[torch.Tensor] = None   # (n, K) gather-form adjoint
+    inv_mask: Optional[torch.Tensor] = None  # (n, K)
 
     zdim = (3, 2)
+
+    def _adjoint_index(self):
+        return self.tris, None, self.w.dtype
 
     @classmethod
     def from_mesh(cls, verts: np.ndarray, tris: np.ndarray, lame: Lame,
@@ -212,8 +224,7 @@ class TriBatch:
         dE = T[:, None, 0] * Rt[None, :, 0] + T[:, None, 1] * Rt[None, :, 1]
         v0 = -(dE[:, 0] + dE[:, 1])                         # (i, E)
         contrib = torch.cat([v0[:, None], dE], dim=1)       # (i, vertex, E)
-        return _scatter_rows(contrib.permute(2, 1, 0).reshape(-1, 3),
-                             self.tris.reshape(-1), n_verts)
+        return self._scatter(contrib.permute(2, 1, 0).reshape(-1, 3), n_verts)
 
     def prox(self, v):
         vm = p2m(v, self.zdim)
@@ -234,7 +245,7 @@ class TriBatch:
                                               self.limit_min, self.limit_max)
 
 
-class _VertexTerms:
+class _VertexTerms(GatherAdjoint):
     """Identity reduction on a vertex and no elastic energy: the shared
     half of the pin and collision batches."""
 
@@ -244,7 +255,7 @@ class _VertexTerms:
         return x[self.idx].T                               # (3, E)
 
     def scatter(self, t, n_verts):
-        return _scatter_rows(t.T, self.idx, n_verts)
+        return self._scatter(t.T, n_verts)
 
     def grad(self, z):
         return torch.zeros_like(z)
@@ -262,6 +273,8 @@ class PinBatch(_VertexTerms):
     target: torch.Tensor   # (E, 3)
     active: torch.Tensor   # (E,) bool
     w: torch.Tensor        # (E,)
+    inv_idx: Optional[torch.Tensor] = None   # (n, K) gather-form adjoint
+    inv_mask: Optional[torch.Tensor] = None  # (n, K)
 
     @classmethod
     def create(cls, idx, targets, dtype=np.float64) -> "PinBatch":
@@ -293,6 +306,8 @@ class CollisionBatch(_VertexTerms):
     w: torch.Tensor        # (E,)
     scene: SdfScene
     mesh_sdfs: tuple = ()
+    inv_idx: Optional[torch.Tensor] = None   # (n, K) gather-form adjoint
+    inv_mask: Optional[torch.Tensor] = None  # (n, K)
 
     @classmethod
     def create(cls, idx, scene: SdfScene, mesh_sdfs=(),
@@ -329,6 +344,8 @@ class SelfCollisionBatch(_VertexTerms):
     active: torch.Tensor  # (E,) bool — refreshed per step
     target: torch.Tensor  # (E, 3) deformed contact point, per step
     normal: torch.Tensor  # (E, 3) deformed outward normal, per step
+    inv_idx: Optional[torch.Tensor] = None   # (n, K) gather-form adjoint
+    inv_mask: Optional[torch.Tensor] = None  # (n, K)
 
     @classmethod
     def create(cls, idx, dtype=np.float64) -> "SelfCollisionBatch":

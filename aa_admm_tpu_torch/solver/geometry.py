@@ -1,6 +1,5 @@
 """ALM/ADMM geometry optimization solver (counterpart of
-aa_admm_tpu/solver/geometry.py without the BSR operator, the gather-form
-adjoints and sharding).
+aa_admm_tpu/solver/geometry.py without the BSR operator and sharding).
 
 Re-implements ``ALMGeometrySolver<N>`` (Geometry/ALMGeometrySolver.h:52-463):
 hard/soft constraint transforms, exact hard projection + weighted soft
@@ -8,7 +7,12 @@ projection in the z-update, a per-coordinate global solve (dense inverse, or
 CG through kernels B2/B3 with the two-level preconditioner and the ELL
 matvec), a scaled-dual update on the hard block, and safeguarded Anderson
 acceleration over the (u, x) pair with accept/reject on the combined
-residual ``||D_h x - z_h||^2 + ||D_h x - D_h x_prev||^2``.
+residual ``||D_h x - z_h||^2 + ||D_h x - D_h x_prev||^2``. Every scatter
+(the constraints' adjoints, the regularization rows, the restriction) is a
+gather over a table built at set-up, so a solve repeats bit for bit on the
+card. The JAX package's Morton-blocked operator (``BsrMatrix``) is not
+ported: on an H100 its CG is slower than the ELL one (PERF.md;
+``tools/port_bsr_cost.py`` holds a copy and measures it).
 
 The loop counts accepted iterations. The accept/reject choice stays on the
 device (``torch.where`` over the state); the host reads the accept count once
@@ -29,6 +33,7 @@ import torch
 from .. import resolve_device
 from ..core.meshio import save_residual_file
 from ..core.timers import MicroTimer
+from ..ops._batchutil import GatherAdjoint
 from ..ops.constraints import (AngleBatch, ClosenessBatch, EdgeLengthBatch,
                                PlaneBatch, RefSurfaceBatch,
                                assemble_geometry_node_matrix,
@@ -40,7 +45,7 @@ from .multigrid import TwoLevelPrecond, build_two_level
 
 
 @dataclasses.dataclass(frozen=True)
-class RegRows:
+class RegRows(GatherAdjoint):
     """Padded regularization rows L (LinearRegularization.h:36-153):
     row r touches idx[r, :] with coefficients coef[r, :] (already scaled by
     sqrt(weight)); target rhs per row."""
@@ -49,6 +54,11 @@ class RegRows:
     coef: torch.Tensor    # (R, K)
     mask: torch.Tensor    # (R, K) bool
     target: torch.Tensor  # (R, 3)
+    inv_idx: Optional[torch.Tensor] = None   # (n, Kv) L^T's table
+    inv_mask: Optional[torch.Tensor] = None  # (n, Kv)
+
+    def _adjoint_index(self):
+        return self.idx, self.mask, self.coef.dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,8 +206,7 @@ def _reg_apply(system, v):
     cm = r.coef * r.mask
     rows = torch.einsum("rk,rkc->rc", cm, v[r.idx])
     contrib = cm[..., None] * rows[:, None, :]
-    return torch.zeros_like(v).index_add_(0, r.idx.reshape(-1),
-                                          contrib.reshape(-1, 3))
+    return r._scatter(contrib.reshape(-1, 3), v.shape[0])
 
 
 def _alm_init_state(system: GeometrySystem, init_x):

@@ -5,18 +5,21 @@ Built once on the host at setup: greedy graph aggregation over the
 constraint connectivity until the coarse problem is small enough to
 dense-invert, the Galerkin coarse operator ``A_c = P^T A P`` assembled by
 index remapping, and its dense inverse. One application is
-``M^-1 r = r / diag(A) + P (A_c^-1 (P^T r))``: an ``index_add_``
-restriction, one (nc, nc) @ (nc, 3) matmul and a gather (prolongation). The
-additive form keeps the preconditioner SPD.
+``M^-1 r = r / diag(A) + P (A_c^-1 (P^T r))``: a restriction (a sum over
+each aggregate's rows, in gather form over an inverse table built at set-up,
+so in one fixed order), one (nc, nc) @ (nc, 3) matmul and a gather
+(prolongation). The additive form keeps the preconditioner SPD.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..ops._batchutil import GatherAdjoint
 from ..ops.constraints import assemble_geometry_node_matrix, hostarr
 from .linear import dense_inverse
 
@@ -112,17 +115,22 @@ def greedy_aggregate(n_verts: int, edges: np.ndarray,
 
 
 @dataclasses.dataclass(frozen=True)
-class TwoLevelPrecond:
+class TwoLevelPrecond(GatherAdjoint):
     """Additive two-level preconditioner; `apply` is the M^-1 r operator
     handed to pcg."""
 
     agg: torch.Tensor       # (n,) int64 vertex -> aggregate
     Ac_inv: torch.Tensor    # (nc, nc) dense inverse of the coarse operator
     inv_diag: torch.Tensor  # (n,) 1/diag(A) — the Jacobi (smoother) term
+    # The restriction's table: each aggregate's rows of r (nc, K).
+    inv_idx: Optional[torch.Tensor] = None
+    inv_mask: Optional[torch.Tensor] = None
+
+    def _adjoint_index(self):
+        return self.agg, None, self.inv_diag.dtype
 
     def apply(self, r):
-        rc = torch.zeros((self.Ac_inv.shape[0], r.shape[1]), dtype=r.dtype,
-                         device=r.device).index_add_(0, self.agg, r)
+        rc = self._scatter(r, self.Ac_inv.shape[0])
         yc = self.Ac_inv @ rc
         return self.inv_diag[:, None] * r + yc[self.agg]
 

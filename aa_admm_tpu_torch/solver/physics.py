@@ -44,11 +44,12 @@ graphs, each captured on first use for its system (fixed shapes, no host
 reads inside) and replayed with its inputs copied in (``_graphed``); the
 kernels and their results are those of the eager calls. Self-contacts
 change every step: the solver copies them into the SelfCollisionBatch's own
-tensors in place, so one system and its graphs serve every step. On the
-card the x-step's scatter (``index_add_``) sums with float atomics, so two
-runs of one step agree bit for bit (a chunked step with the fused one, a
-sidecar replay with the uninterrupted step) only under
-``torch.use_deterministic_algorithms(True)``.
+tensors in place, so one system and its graphs serve every step. Every
+scatter of the step (the batches' adjoints, the jacobi wind) is a gather
+over an inverse table built when its batch is made (ops/_batchutil.py), so
+two runs of one step from one state agree bit for bit on the card too (a
+chunked step with the fused one, a sidecar replay with the uninterrupted
+step), without deterministic algorithms.
 
 The free/fixed split (S_free / S_fix, Solver.cpp:285-328) is index tensors
 into full-vertex tensors; every z/u block is in plane form (C, E)
@@ -71,7 +72,7 @@ from ..core.config import Lame, Settings
 from ..core.factory import TetMeshData
 from ..core.meshio import save_residual_file
 from ..core.timers import MicroTimer, RuntimeData
-from ..ops._batchutil import cast_floats, torch_dtype
+from ..ops._batchutil import GatherAdjoint, cast_floats, torch_dtype
 from ..ops.collider import (DynamicTetCollider, HashGridTetCollider,
                             TetMeshSdf)
 from ..ops.elements import (CollisionBatch, SelfCollisionBatch, TetBatch,
@@ -98,13 +99,13 @@ def _cross(a, b):
 
 
 @dataclasses.dataclass(frozen=True)
-class WindForce:
+class WindForce(GatherAdjoint):
     """Wejchert-Haumann aerodynamic per-triangle normal force applied as a
     pre-ADMM velocity kick (ExplicitForce.cpp:47-104). Two deterministic
     modes, as in the JAX package:
 
     * ``jacobi`` (default): every force against the pre-kick velocity, then
-      one scatter (``index_add_``);
+      one scatter, in gather form over the faces' inverse table;
     * ``sequential``: the triangles in face order, each reading the live
       velocity — the reference loop run on one thread. The JAX package
       scans over the triangles; here it is a Python loop of about eight
@@ -115,6 +116,11 @@ class WindForce:
     direction: torch.Tensor  # (3,)
     alpha_n: float = 1000.0
     mode: str = "jacobi"
+    inv_idx: Optional[torch.Tensor] = None   # (n, K) gather-form adjoint
+    inv_mask: Optional[torch.Tensor] = None  # (n, K)
+
+    def _adjoint_index(self):
+        return self.faces, None, self.direction.dtype
 
     def apply(self, dt, x, v, n_verts):
         f = self.faces
@@ -135,14 +141,16 @@ class WindForce:
                 vv = v[fi]
                 v_n = _dot3(normal[i], (vv[0] + vv[1] + vv[2]) / 3.0 - direction)
                 force = (coef[i] * v_n * v_n.abs()) * normal[i]
+                # One triangle's three distinct vertices: no two of these
+                # adds meet at an address, so the sum is the same on every
+                # run even where index_add_ uses atomics.
                 v.index_add_(0, fi, force.expand(3, 3))
             return v
 
         curr_v = (v[f[:, 0]] + v[f[:, 1]] + v[f[:, 2]]) / 3.0   # (F, 3)
         v_n = _dot3(normal, curr_v - direction)
         force = (coef * v_n * v_n.abs())[:, None] * normal
-        dv = torch.zeros_like(v).index_add_(
-            0, f.reshape(-1), force.repeat_interleave(3, dim=0))
+        dv = self._scatter(force.repeat_interleave(3, dim=0), n_verts)
         return v + dv
 
 
