@@ -115,9 +115,14 @@ def physics_system_from_numpy(fields: dict, device="cpu") -> PhysicsSystem:
     `n_free`, `order`, `dt`, `gravity`, `dt2p`, `admm_iters`, `anderson_m`,
     `accel`, `collect_comb`, `cg_tol`, `cg_max_iters`) and `wind` (None, or
     a WindForce's fields: `faces`, `direction`, `alpha_n`, `mode`). The JAX
-    system's element sharding has no counterpart and must be None."""
+    system's element sharding (a jax.sharding placement) must be None: carry
+    the unsharded system across and shard it with
+    aa_admm_tpu_torch.parallel.ensemble.shard_system."""
     if fields.get("elem_sharding") is not None:
-        raise NotImplementedError("elem_sharding is not ported yet")
+        raise NotImplementedError(
+            "a JAX elem_sharding does not carry across; convert the "
+            "unsharded system and shard it with "
+            "aa_admm_tpu_torch.parallel.ensemble.shard_system")
     wind = fields.get("wind")
     statics = {k: fields[k] for k in (
         "n_verts", "n_free", "order", "dt", "gravity", "dt2p", "admm_iters",

@@ -54,6 +54,25 @@ step), without deterministic algorithms.
 The free/fixed split (S_free / S_fix, Solver.cpp:285-328) is index tensors
 into full-vertex tensors; every z/u block is in plane form (C, E)
 (ops/elements.py).
+
+Two hooks serve parallel/ensemble.py, and change nothing for a plain
+system:
+  * ``PhysicsSystem.n_scenes`` = S > 1: the system is S copies of one scene
+    tiled along every axis (vertex rows s*n ... (s+1)*n - 1, element
+    columns s*E ... (s+1)*E - 1 of each batch). The residual norms, the
+    reject tests, the eps-break, the reset counts and the AA windows are
+    then per scene ((S,) tensors, an AA state led by the scene axis), so
+    each scene rejects, resets and breaks on its own; a reject branch that
+    is a host read runs when any scene rejected and is chosen per scene
+    with ``torch.where``. The global step solves the S scenes as 3S
+    columns of one (nf, 3S) block: one matmul by the shared inverse, or one
+    CG whose per-column freeze is per-scene convergence.
+  * ``PhysicsSystem.comm``: an element-sharded system holds this rank's
+    range of each batch's elements; ``comm.all_reduce`` sums the vertex
+    scatter (the right-hand side and every CG matvec), the squared norms
+    and the AA inner-product partials over the element group, so every
+    branch reads a value all ranks share. Such a system runs eagerly
+    (no CUDA graphs around the collectives).
 """
 
 from __future__ import annotations
@@ -178,6 +197,8 @@ class PhysicsSystem:
     collect_comb: bool = True
     cg_tol: float = 1e-12
     cg_max_iters: int = 400
+    n_scenes: int = 1      # S tiled copies of one scene (parallel/ensemble)
+    comm: Optional[object] = None  # element group of a sharded system
 
     def deform(self, x):
         return tuple(b.deform(x) for b in self.batches)
@@ -187,7 +208,7 @@ class PhysicsSystem:
                           device=ts[0].device)
         for b, t in zip(self.batches, ts):
             out = out + b.scatter(t, self.n_verts)
-        return out
+        return _reduce(self, out)
 
 
 def _counts():
@@ -204,13 +225,62 @@ def _tmap(fn, *trees):
     return tuple(fn(*xs) for xs in zip(*trees))
 
 
-def _sqnorm_all(ts):
-    """||concat(ts)||^2 as per-block sums added in block order."""
-    return sum((t * t).sum() for t in ts)
+def _reduce(system, t):
+    """t summed over a sharded system's element group (t is this rank's
+    partial); t itself for an unsharded system."""
+    return t if system.comm is None else system.comm.all_reduce(t)
+
+
+def _aa_reduce(system):
+    return None if system.comm is None else system.comm.all_reduce
+
+
+def _by_scene(t, S):
+    """An element block (C, S*E) of a tiled system as (S, C*E): each row one
+    scene's block, flattened as _flatten flattens it."""
+    return t.reshape(t.shape[0], S, -1).transpose(0, 1).reshape(S, -1)
+
+
+def _scene_shape(system):
+    """Shape of a per-scene scalar: () for one scene, (S,) for S."""
+    return () if system.n_scenes == 1 else (system.n_scenes,)
+
+
+def _sqnorm_all(system, ts):
+    """||concat(ts)||^2 as per-block sums added in block order; per scene,
+    (S,), for a tiled system."""
+    S = system.n_scenes
+    if S == 1:
+        out = sum((t * t).sum() for t in ts)
+    else:
+        out = sum((r * r).sum(1) for r in (_by_scene(t, S) for t in ts))
+    return _reduce(system, out)
 
 
 def _flatten(ts):
     return torch.cat([t.reshape(-1) for t in ts])
+
+
+def _aa_flat(system, ts):
+    """The AA iterate of element blocks: (d,), or (S, d) for S scenes."""
+    S = system.n_scenes
+    if S == 1:
+        return _flatten(ts)
+    return torch.cat([_by_scene(t, S) for t in ts], dim=1)
+
+
+def _aa_unflat(system, flat, templates):
+    """Inverse of _aa_flat into blocks shaped as `templates`."""
+    S = system.n_scenes
+    if S == 1:
+        return _unflatten(flat, templates)
+    out, off = [], 0
+    for t in templates:
+        size = t.numel() // S
+        out.append(flat[:, off:off + size].reshape(S, t.shape[0], -1)
+                   .transpose(0, 1).reshape(t.shape))
+        off += size
+    return tuple(out)
 
 
 def _unflatten(flat, templates):
@@ -291,16 +361,39 @@ def _sync_dev(t):
         torch.cuda.synchronize(t.device)
 
 
+# Keys of a step's carry that hold element blocks (tuples of (C, E) planes).
+_BLOCKS = ("z", "u", "dz", "du")
+
+
 def _select(cond, a, b):
-    """torch.where(cond, a, b) over a carried state (dicts, tuples, AA
-    states, tensors)."""
-    if isinstance(a, dict):
-        return {k: _select(cond, a[k], b[k]) for k in a}
-    if isinstance(a, tuple):
-        return tuple(_select(cond, x, y) for x, y in zip(a, b))
+    """{k: torch.where(cond, a[k], b[k])} over two carried states (dicts of
+    tensors, AA states and tuples of element blocks), in a's key order.
+    cond is 0-d, or (S,) per scene of a tiled system; then each value is
+    chosen along its scene axis: the element columns for the keys named in
+    _BLOCKS (which must hold tuples of element blocks, and only those keys
+    may), the leading axis for every other key (vertex rows, per-scene
+    scalars, an AA state)."""
+    return {k: _where_scene(cond, a[k], b[k], k in _BLOCKS) for k in a}
+
+
+def _where_scene(cond, a, b, blocks):
+    if isinstance(a, tuple) != blocks:
+        raise TypeError("element blocks are tuples under the keys of "
+                        "_BLOCKS, and only those")
+    if blocks:
+        return tuple(_where_tensor(cond, x, y, True) for x, y in zip(a, b))
     if isinstance(a, anderson.AAState):
         return anderson.where(cond, a, b)
-    return torch.where(cond, a, b)
+    return _where_tensor(cond, a, b, False)
+
+
+def _where_tensor(cond, a, b, block):
+    if cond.dim() == 0:
+        return torch.where(cond, a, b)
+    S = cond.shape[0]
+    shape, c = ((a.shape[0], S, -1), cond[None, :, None]) if block \
+        else ((S, -1), cond[:, None])
+    return torch.where(c, a.reshape(shape), b.reshape(shape)).reshape(a.shape)
 
 
 class _GraphedCall:
@@ -328,8 +421,9 @@ class _GraphedCall:
 def _graphed(system: PhysicsSystem, key, fn, x):
     """fn(x) for a function of one tensor that does fixed-shape device work
     only: eager on the CPU, a replayed CUDA graph on CUDA (captured on the
-    first call for this system and key)."""
-    if not x.is_cuda:
+    first call for this system and key). A sharded system's calls hold
+    collectives and run eagerly."""
+    if not x.is_cuda or system.comm is not None:
         return fn(x)
     graphs = system.__dict__.setdefault("_graphs", {})
     if key not in graphs:
@@ -342,13 +436,14 @@ def _graphed(system: PhysicsSystem, key, fn, x):
 # ----------------------------------------------------------------------------
 
 def _prox_all(system: PhysicsSystem, vs):
-    return tuple(_graphed(system, ("prox", i), b.prox, v)
-                 for i, (b, v) in enumerate(zip(system.batches, vs)))
+    # A shard may hold no element of a batch: its block is empty.
+    return tuple(_graphed(system, ("prox", i), b.prox, v) if v.shape[-1]
+                 else v for i, (b, v) in enumerate(zip(system.batches, vs)))
 
 
 def _grad_all(system: PhysicsSystem, zs):
-    return tuple(_graphed(system, ("grad", i), b.grad, z)
-                 for i, (b, z) in enumerate(zip(system.batches, zs)))
+    return tuple(_graphed(system, ("grad", i), b.grad, z) if z.shape[-1]
+                 else z for i, (b, z) in enumerate(zip(system.batches, zs)))
 
 
 def _apply_A(system: PhysicsSystem, vf):
@@ -376,7 +471,7 @@ def _prim_vec(system, x_full, z):
 
 
 def _j_prim_norm(system, x_full, z):
-    return torch.sqrt(_sqnorm_all(_prim_vec(system, x_full, z)))
+    return torch.sqrt(_sqnorm_all(system, _prim_vec(system, x_full, z)))
 
 
 def _j_add_prim(system, u, x_full, z):
@@ -390,7 +485,7 @@ def _j_winv_grad(system, z):
 
 def _j_comb(system, x_full, z, z_ref):
     dual = _tmap(lambda b, a, c: _wx(b, a - c), system.batches, z, z_ref)
-    return _sqnorm_all(dual + _prim_vec(system, x_full, z))
+    return _sqnorm_all(system, dual + _prim_vec(system, x_full, z))
 
 
 def _j_comb_zxu(system, x_full, last_x, z):
@@ -398,7 +493,7 @@ def _j_comb_zxu(system, x_full, last_x, z):
     (admm_anderson_hard_zxu/src/Solver.cpp:181-185)."""
     dual = _tmap(lambda b, a, c: _wx(b, a - c), system.batches,
                  system.deform(x_full), system.deform(last_x))
-    return _sqnorm_all(_prim_vec(system, x_full, z) + dual)
+    return _sqnorm_all(system, _prim_vec(system, x_full, z) + dual)
 
 
 def _solve_x(system: PhysicsSystem, M_xbar_free, z, u, c_blocks, base_full,
@@ -406,21 +501,33 @@ def _solve_x(system: PhysicsSystem, M_xbar_free, z, u, c_blocks, base_full,
     """Global step: x = A^-1 (M xbar + dt2p * D^T W (W z + C - u))
     (Solver.cpp:148-149). c_blocks = F_b(pin embedding), constant per step.
     x_warm (full positions) warm-starts the CG path; the dense path is one
-    matmul. CG iterations and host reads go into `counts`."""
+    matmul. CG iterations and host reads go into `counts`. A tiled system's
+    S scenes are solved as the 3S columns of one (nf, 3S) block."""
     t = _tmap(lambda b, zb, ub, cb: _wx(b, zb - cb, 2) - _wx(b, ub),
               system.batches, z, u, c_blocks)
     s = system.scatter(t)
     fi = system.free_idx
     rhs = M_xbar_free + system.dt2p * s[fi]
-    if system.solver is not None:
-        xf = system.solver.solve(rhs)
+    S = system.n_scenes
+    if S == 1:
+        cols = rows = lambda v: v
     else:
-        def operator(vf):
-            return _graphed(system, "A", lambda v: _apply_A(system, v), vf)
-        x0 = None if x_warm is None else x_warm[fi]
-        xf, n_it, reads = pcg(operator, rhs, system.precond_diag,
+        def cols(v):                       # (S*nf, 3) -> (nf, 3S)
+            return v.reshape(S, -1, 3).transpose(0, 1).reshape(-1, 3 * S)
+
+        def rows(v):                       # (nf, 3S) -> (S*nf, 3)
+            return v.reshape(-1, S, 3).transpose(0, 1).reshape(-1, 3)
+    if system.solver is not None:
+        xf = rows(system.solver.solve(cols(rhs)))
+    else:
+        def operator(vc):
+            return cols(_graphed(system, "A", lambda v: _apply_A(system, v),
+                                 rows(vc)))
+        x0 = None if x_warm is None else cols(x_warm[fi])
+        xf, n_it, reads = pcg(operator, cols(rhs), system.precond_diag,
                               tol=system.cg_tol,
                               max_iters=system.cg_max_iters, x0=x0)
+        xf = rows(xf)
         if counts is not None:
             counts["cg_iters"] += n_it
             counts["host_reads"] += reads
@@ -469,14 +576,20 @@ def _xzu_setup(system: PhysicsSystem, x, v, pin_pos, counts=None):
     x_full = _solve_x(system, M_xbar_free, z, u, c_blocks, base_full,
                       counts=counts)
     z = _update_z(system, x_full, u)
-    aa0 = anderson.init(system.anderson_m, _flatten(z))
-    kw = dict(device=x.device)
-    carry = dict(x=x_full, z=z, u=u, dx=x_full, dz=z, du=u,
-                 prev=torch.tensor(1e20, dtype=x.dtype, **kw), aa=aa0,
-                 done=torch.tensor(False, **kw),
-                 resets=torch.zeros((), dtype=torch.int64, **kw))
+    aa0 = anderson.init(system.anderson_m, _aa_flat(system, z))
+    carry = dict(x=x_full, z=z, u=u, dx=x_full, dz=z, du=u, aa=aa0,
+                 **_loop_flags(system, x))
     consts = dict(M=M_xbar_free, c=c_blocks, base=base_full)
     return carry, consts
+
+
+def _loop_flags(system, x):
+    """The loop's per-scene scalars at its start: the last primal residual,
+    the eps-break flag and the reset count."""
+    shape, kw = _scene_shape(system), dict(device=x.device)
+    return dict(prev=torch.full(shape, 1e20, dtype=x.dtype, **kw),
+                done=torch.zeros(shape, dtype=torch.bool, **kw),
+                resets=torch.zeros(shape, dtype=torch.int64, **kw))
 
 
 def _xzu_body(system: PhysicsSystem, consts, counts=None):
@@ -509,30 +622,33 @@ def _xzu_body(system: PhysicsSystem, consts, counts=None):
             rejected = carry["prev"] < prim
 
             def do_reject():
-                aa2 = anderson.replace(aa, _flatten(dz_))
+                aa2 = anderson.replace(aa, _aa_flat(system, dz_))
                 cu2 = _j_add_prim(system, du_, dx_, dz_)
                 cx2 = solve(dz_, cu2)
                 prim2 = _j_prim_norm(system, cx2, dz_)
-                return cx2, dz_, cu2, aa2, prim2
+                return dict(x=cx2, z=dz_, u=cu2, aa=aa2, prim=prim2)
 
+            kept = dict(x=cx, z=cz, u=cu, aa=aa, prim=prim)
             if system.solver is not None:
                 # dense: both branches, chosen on the device
                 cx, cz, cu, aa, prim = _select(
-                    rejected, do_reject(), (cx, cz, cu, aa, prim))
+                    rejected, do_reject(), kept).values()
             else:
                 counts["host_reads"] += 1
-                if bool(rejected):
-                    cx, cz, cu, aa, prim = do_reject()
+                if bool(rejected.any()):
+                    cx, cz, cu, aa, prim = _select(
+                        rejected, do_reject(), kept).values()
         else:
-            rejected = torch.zeros((), dtype=torch.bool, device=cx.device)
+            rejected = torch.zeros_like(prim, dtype=torch.bool)
 
         prev = prim
         ndx, ndu = cx, cu
         if accel:
             ndz = _update_z(system, cx, cu)
-            aa, zflat = anderson.compute(aa, _flatten(ndz))
+            aa, zflat = anderson.compute(aa, _aa_flat(system, ndz),
+                                         _aa_reduce(system))
             counts["host_reads"] += 1
-            cz = _unflatten(zflat, ndz)
+            cz = _aa_unflat(system, zflat, ndz)
         else:
             last_z = cz
             cz = _update_z(system, cx, cu)
@@ -547,8 +663,7 @@ def _xzu_body(system: PhysicsSystem, consts, counts=None):
             else:
                 comb = _j_comb(system, cx, cz, last_z)
         else:
-            comb = torch.full((), float("inf"), dtype=prim.dtype,
-                              device=prim.device)
+            comb = torch.full_like(prim, float("inf"))
 
         done = carry["done"]
         new = dict(x=cx, z=cz, u=cu, dx=ndx, dz=ndz, du=ndu, prev=prev, aa=aa,
@@ -603,7 +718,7 @@ def _step_commit(system: PhysicsSystem, carry, x0, prims, combs, rejects):
     """The committed positions and velocities and the StepTrace."""
     x_new = _commit_x(system, carry)
     v_new = (x_new - x0) / system.dt
-    n_valid = (~torch.isnan(prims)).sum()
+    n_valid = (~torch.isnan(prims)).sum(0)
     return x_new, v_new, StepTrace(prims, combs, rejects, n_valid,
                                    carry["resets"])
 
@@ -739,8 +854,16 @@ def step_xzu_instrumented(system: PhysicsSystem, x, v, pin_pos,
 # z -> x -> u (AA on (u, x)) — admm_anderson_hard_zxu/src/Solver.cpp:34-234
 # ----------------------------------------------------------------------------
 
-def _flat_ux(u, xf):
-    return torch.cat([_flatten(u), xf.reshape(-1)])
+def _flat_ux(system, u, xf):
+    """The zxu AA iterate: the u blocks, then the free positions; (d,), or
+    (S, d) for S scenes."""
+    return torch.cat([_aa_flat(system, u),
+                      xf.reshape(*_scene_shape(system), -1)], dim=-1)
+
+
+def _u_size(system, u):
+    """One scene's length of the u head of the zxu AA iterate."""
+    return sum(t.numel() for t in u) // system.n_scenes
 
 
 def _zxu_setup(system: PhysicsSystem, x, v, pin_pos, counts=None):
@@ -756,13 +879,11 @@ def _zxu_setup(system: PhysicsSystem, x, v, pin_pos, counts=None):
     x_full = _solve_x(system, M_xbar_free, z, u, c_blocks, base_full,
                       counts=counts)
     u = _tmap(torch.add, u, _prim_vec(system, x_full, z))
-    aa0 = anderson.init(max(system.anderson_m, 1), _flat_ux(u, x_full[fi]),
-                        effective_dim=sum(t.numel() for t in u))
-    kw = dict(device=x.device)
-    carry = dict(x=x_full, z=z, u=u, dx=x_full, du=u,
-                 prev=torch.tensor(1e20, dtype=x.dtype, **kw), aa=aa0,
-                 done=torch.tensor(False, **kw),
-                 resets=torch.zeros((), dtype=torch.int64, **kw))
+    aa0 = anderson.init(max(system.anderson_m, 1),
+                        _flat_ux(system, u, x_full[fi]),
+                        effective_dim=_u_size(system, u))
+    carry = dict(x=x_full, z=z, u=u, dx=x_full, du=u, aa=aa0,
+                 **_loop_flags(system, x))
     consts = dict(M=M_xbar_free, c=c_blocks, base=base_full)
     return carry, consts
 
@@ -785,13 +906,17 @@ def _zxu_body(system: PhysicsSystem, consts, counts=None):
             rejected = carry["prev"] < prim
             counts["host_reads"] += 1
             # Frozen iterations (done) discard their result: no reject run.
-            if bool(rejected & ~done):
-                cu, cx = carry["du"], carry["dx"]
-                aa = anderson.reset(aa, _flat_ux(cu, cx[fi]))
-                cz = _update_z(system, cx, cu)
-                prim = _j_prim_norm(system, cx, cz)
+            redo = rejected & ~done
+            if bool(redo.any()):
+                ru, rx = carry["du"], carry["dx"]
+                rz = _update_z(system, rx, ru)
+                cu, cx, aa, cz, prim = _select(redo, dict(
+                    u=ru, x=rx, aa=anderson.reset(aa, _flat_ux(system, ru,
+                                                              rx[fi])),
+                    z=rz, prim=_j_prim_norm(system, rx, rz)),
+                    dict(u=cu, x=cx, aa=aa, z=cz, prim=prim)).values()
         else:
-            rejected = torch.zeros((), dtype=torch.bool, device=cx.device)
+            rejected = torch.zeros_like(prim, dtype=torch.bool)
 
         last_x, prev = cx, prim
         cx = _solve_x(system, M_xbar_free, cz, cu, c_blocks, base_full,
@@ -802,7 +927,7 @@ def _zxu_body(system: PhysicsSystem, consts, counts=None):
         prim_v = _tmap(lambda b, f, zb: _wx(b, f - zb), system.batches, F, cz)
         dual = _tmap(lambda b, a, c: _wx(b, a - c), system.batches, F,
                      system.deform(last_x))
-        comb = _sqnorm_all(prim_v + dual)
+        comb = _sqnorm_all(system, prim_v + dual)
         done_now = comb < _EPS_BREAK
 
         # u-update + AA happen only if the eps-break did not fire
@@ -810,16 +935,17 @@ def _zxu_body(system: PhysicsSystem, consts, counts=None):
         ndu = _tmap(torch.add, cu, prim_v)
         ndx = cx
         if accel:
-            aa3, mixed = anderson.compute(aa, _flat_ux(ndu, cx[fi]))
+            aa3, mixed = anderson.compute(aa, _flat_ux(system, ndu, cx[fi]),
+                                          _aa_reduce(system))
             counts["host_reads"] += 1
-            zu = sum(t.numel() for t in ndu)
-            cu3 = _unflatten(mixed[:zu], ndu)
-            cx3 = base_full.index_copy(0, fi, mixed[zu:].reshape(-1, 3))
+            zu = _u_size(system, ndu)
+            cu3 = _aa_unflat(system, mixed[..., :zu], ndu)
+            cx3 = base_full.index_copy(0, fi, mixed[..., zu:].reshape(-1, 3))
         else:
             cu3, cx3, aa3 = ndu, cx, aa
         cu3, cx3, aa3, ndu, ndx = _select(
-            done_now, (cu, cx, aa, carry["du"], carry["dx"]),
-            (cu3, cx3, aa3, ndu, ndx))
+            done_now, dict(u=cu, x=cx, aa=aa, du=carry["du"], dx=carry["dx"]),
+            dict(u=cu3, x=cx3, aa=aa3, du=ndu, dx=ndx)).values()
 
         new = dict(x=cx3, z=cz, u=cu3, dx=ndx, du=ndu, prev=prev, aa=aa3,
                    done=done | done_now,
@@ -860,8 +986,8 @@ def step_zxu_instrumented(system: PhysicsSystem, x, v, pin_pos,
     x_full = solve(z, u)
     u = _j_add_prim(system, u, x_full, z)
     zu_size = sum(t_.numel() for t_ in u)
-    aa = anderson.init(max(system.anderson_m, 1), _flat_ux(u, x_full[fi]),
-                       effective_dim=zu_size)
+    aa = anderson.init(max(system.anderson_m, 1),
+                       _flat_ux(system, u, x_full[fi]), effective_dim=zu_size)
     _sync_dev(x_full)
     runtime.initialization_ms += t.elapsed_ms()
 
@@ -884,7 +1010,7 @@ def step_zxu_instrumented(system: PhysicsSystem, x, v, pin_pos,
             resets += 1
             rejected = 1
             cu, cx = du_, dx_
-            aa = anderson.reset(aa, _flat_ux(cu, cx[fi]))
+            aa = anderson.reset(aa, _flat_ux(system, cu, cx[fi]))
             cz = _update_z(system, cx, cu)
             prim = read(_j_prim_norm(system, cx, cz))
         prev_prim = prim
@@ -905,7 +1031,7 @@ def step_zxu_instrumented(system: PhysicsSystem, x, v, pin_pos,
         cu = _j_add_prim(system, cu, cx, cz)
         du_, dx_ = cu, cx
         if accel:
-            aa, mixed = anderson.compute(aa, _flat_ux(cu, cx[fi]))
+            aa, mixed = anderson.compute(aa, _flat_ux(system, cu, cx[fi]))
             counts["host_reads"] += 1
             cu = _unflatten(mixed[:zu_size], cu)
             cx = base_full.index_copy(0, fi, mixed[zu_size:].reshape(-1, 3))
@@ -1633,7 +1759,7 @@ class PhysicsSolver:
             else:
                 carry["aa"] = anderson.init(
                     max(sys_.anderson_m, 1),
-                    _flat_ux(ut, x_full[sys_.free_idx]),
+                    _flat_ux(sys_, ut, x_full[sys_.free_idx]),
                     effective_dim=sum(t.numel() for t in ut))
         carry, ys = _step_scan_chunk(sys_, carry, consts, sys_.admm_iters,
                                      self.stats)

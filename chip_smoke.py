@@ -69,7 +69,23 @@ non-zero before the final result line):
      twice from one state and held bit for bit: two accelerated beams
      steps, two windyflag-synthetic steps, plinkohit's first contact
      frame, five float32 trials of phase 5's wire mesh (its solver when
-     phase 5 ran, else a new 20-iteration solve of its scene).
+     phase 5 ran, else a new 20-iteration solve of its scene);
+ 12. scene ensembles and element sharding (aa_admm_tpu_torch/parallel):
+     bench.py's ensemble bench in float32 on beams-published (-a 1 -am 5,
+     100 iterations, the stretch pin velocity) and plinkohit-synthetic
+     (phase 9's block, 13 iterations): 8 replicas x 10 frames as one tiled
+     ensemble against the single-scene rollout of the same 10 frames
+     (iterations/s of both, bench.py's consistency bound 1e-4 * max(1,
+     max|x1|), each replica's bits, the residual check, host reads per
+     batched step); plinkohit-synthetic at 1, 8, 32 and 128 scenes
+     (iterations/s, device ms per batched iteration); float64 ensemble
+     steps against single-scene steps (both orders, dense and CG paths,
+     replicas whose velocities differ; rtol 1e-10, atol 1e-12, equal
+     resets); the sharding dryrun on two ranks on the one card through
+     gloo, each holding half of every element batch: both orders, on the
+     dense and the CG global step, against the unsharded float64 step
+     (max|dx| < 1e-10, max|dprim| < 1e-8), with iterations/s and
+     collectives per step.
 
 ``--phases 1,2,7`` runs only the listed phases (phase 1 always runs); the
 result lines need every phase.
@@ -1836,6 +1852,204 @@ def phase_bits(ck, wire_solver=None):
     check(all(rows), "phase 11: a run repeated from one state differs")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: scene ensembles on one card, element-axis sharding
+# ---------------------------------------------------------------------------
+
+def prim_ok(prim):
+    """bench.py's _prim_ok: every frame's first iterate finite, no inf
+    anywhere (NaN marks the iterations an eps-break skipped)."""
+    prim = prim.double().cpu().numpy()
+    return bool(np.isfinite(prim[..., 0]).all()
+                and not np.isinf(prim).any())
+
+
+def replicas(solver, n):
+    """n copies of the solver's (x, v, pin_pos), (n, verts, 3) each."""
+    return tuple(t.expand(n, *t.shape).clone() for t in
+                 (solver._x_dev, solver._v_dev, solver._pin_pos_dev()))
+
+
+def ensemble_bench(name, solver, pin_vel, n_rep=8, n_frames=10):
+    """bench.py's _ensemble_bench (bench.py:128-170) through the port:
+    n_rep replicas x n_frames as one tiled ensemble against the
+    single-scene run_frames of the same frames, each warmed by one frame
+    first (the CUDA graphs' capture)."""
+    from aa_admm_tpu_torch.parallel.ensemble import ensemble_run_frames
+    from aa_admm_tpu_torch.solver.physics import _counts, run_frames
+    system, iters = solver.system, solver.system.admm_iters
+    x, v, pp = solver._x_dev, solver._v_dev, solver._pin_pos_dev()
+    pv = None if pin_vel is None else torch.as_tensor(
+        pin_vel, dtype=x.dtype, device=x.device)
+    xs, vs, pps = replicas(solver, n_rep)
+    run_frames(system, x, v, pp, 1, pv)
+    ensemble_run_frames(system, xs, vs, pps, 1, pv)
+    torch.cuda.synchronize()
+    single = _counts()
+    t0 = time.perf_counter()
+    x1, _, _, tr1 = run_frames(system, x, v, pp, n_frames, pv, single)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    counts = _counts()
+    t0 = time.perf_counter()
+    xe, _, _, tre = ensemble_run_frames(system, xs, vs, pps, n_frames, pv,
+                                        counts)
+    torch.cuda.synchronize()
+    t_ens = time.perf_counter() - t0
+    rate = n_rep * n_frames * iters / t_ens
+    rate1 = n_frames * iters / t_single
+    err = float((xe - x1[None]).abs().max())
+    bound = 1e-4 * max(1.0, float(x1.abs().max()))
+    bits = sum(bool(torch.equal(xe[r], x1)) for r in range(n_rep))
+    ok = prim_ok(tre.prim) and prim_ok(tr1.prim)
+    print(f"  {name}, {solver.n_verts} vertices, {iters} iterations/frame, "
+          f"f32: ensemble {n_rep} x {n_frames} frames {t_ens:.3f} s, "
+          f"ensemble_iters_per_s {rate:.3f}; single-scene run_frames "
+          f"{t_single:.3f} s, {rate1:.3f} iterations/s (ratio "
+          f"{rate / rate1:.2f}); consistency err {err:.3e} (bound "
+          f"{bound:.3e}); {bits} of {n_rep} replicas bit-equal to the "
+          f"single rollout; _prim_ok {ok}; resets per replica "
+          f"{tre.reset_count.sum(1).tolist()} (single "
+          f"{int(tr1.reset_count.sum())}); host reads per batched step "
+          f"{counts['host_reads'] / n_frames:.1f} (single "
+          f"{single['host_reads'] / n_frames:.1f})")
+    check(err < bound, f"{name} ensemble: consistency err {err} >= {bound}")
+    check(ok, f"{name} ensemble: non-finite residuals")
+
+
+def busy_ms(fn):
+    """(wall ms, device busy ms, device launches) of one fn() call under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in dev) / 1e3
+    return wall, busy, sum(e.count for e in dev)
+
+
+def ensemble_scaling(solver, sizes=(1, 8, 32, 128), n_frames=3):
+    """plinkohit-synthetic's ensemble at each size: iterations/s over
+    n_frames frames (after one warm frame), device ms per batched
+    iteration from a profiled frame."""
+    from aa_admm_tpu_torch.parallel.ensemble import ensemble_step
+    step = ensemble_step(solver.system.order)
+    iters = solver.system.admm_iters
+    for S in sizes:
+        xs, vs, pps = replicas(solver, S)
+
+        def frames(k, xs=xs, vs=vs):
+            for _ in range(k):
+                xs, vs, tr = step(solver.system, xs, vs, pps)
+            return xs, tr
+        frames(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xe, tr = frames(n_frames)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        wall, busy, launches = busy_ms(lambda: frames(1))
+        print(f"  plinkohit-synthetic ensemble of {S}: "
+              f"{S * n_frames * iters / secs:.1f} iterations/s "
+              f"({secs / n_frames * 1e3:.1f} ms/frame); profiled frame: "
+              f"wall {wall:.1f} ms, device {busy / iters:.3f} ms per batched "
+              f"iteration, idle share {1 - busy / wall:.3f}, "
+              f"{launches / iters:.0f} launches per iteration")
+        check(bool(torch.isfinite(xe).all()) and prim_ok(tr.prim),
+              f"plinkohit-synthetic ensemble of {S}: non-finite result")
+
+
+def tiny_parity(order, path, n=4):
+    """float64 ensemble step of the tiny scene on the card against
+    single-scene steps (replicas whose velocities differ): max |dx|, max
+    relative prim difference, resets equal."""
+    from aa_admm_tpu_torch.parallel import ensemble as ens
+    from aa_admm_tpu_torch.solver import physics as ph
+    iters, m = (30, 2) if order == "xzu" else (20, 3)
+    solver, s = ens.build_tiny_scene(order, "float64", iters, m,
+                                     device="cuda")
+    if path == "cg":
+        s.linear_solver = "cg"
+        solver.initialize(s)
+    xs, vs, pps = ens.tiny_states(solver, n, spread=1.0)
+    if order == "xzu":      # velocities that make the fastest replica reject
+        g = np.random.default_rng(0).normal(size=tuple(vs.shape))
+        vs = torch.from_numpy(20.0 * np.linspace(0.0, 1.0, n)[:, None, None]
+                              * g).to(vs)
+    xe, _, tre = ens.ensemble_step(order)(solver.system, xs, vs, pps)
+    fn = ph.step_xzu if order == "xzu" else ph.step_zxu
+    dx, dp, same = 0.0, 0.0, True
+    for r in range(n):
+        x1, _, tr1 = fn(solver.system, xs[r], vs[r], pps[r])
+        close = torch.allclose(xe[r], x1, rtol=1e-10, atol=1e-12)
+        p, p1 = tre.prim[r], tr1.prim
+        ok = ~torch.isnan(p1)
+        same &= (close and torch.equal(torch.isnan(p), ~ok)
+                 and torch.allclose(p[ok], p1[ok], rtol=1e-10, atol=1e-12)
+                 and int(tre.reset_count[r]) == int(tr1.reset_count))
+        dx = max(dx, float((xe[r] - x1).abs().max()))
+        dp = max(dp, float((p[ok] - p1[ok]).abs().max() / p1[0]))
+    print(f"  f64 ensemble of {n} against single-scene steps, {order} "
+          f"{path}: max|dx| {dx:.3e}, max|dprim| / first prim {dp:.3e}, "
+          f"resets {tre.reset_count.tolist()}")
+    check(same, f"f64 ensemble {order} {path}: differs from single-scene "
+          "steps beyond rtol 1e-10 / atol 1e-12 or in its resets")
+
+
+def phase_ensembles(ck):
+    import shutil
+    import tempfile
+    from aa_admm_tpu_torch.apps import beams, plinkohit
+    from aa_admm_tpu_torch.parallel.ensemble import dryrun
+    ck.reset_launch_counts()
+    tmp = tempfile.mkdtemp(prefix="smoke_ens_")
+    try:
+        t0 = time.perf_counter()
+        s = beams_settings(True, 100)
+        s.dtype = np.dtype(np.float32)
+        solver, stretch = beams.build_scene(s, device="cuda")
+        ensemble_bench("beams-published -a 1 -am 5", solver,
+                       stretch.pin_velocity)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        hit = block_file(tmp, "hit", (12, 7, 8), 0.15, 0.25, -1.0,
+                         (0.25, 2.5, 0.0))
+        s = zxu_settings(True, 13)
+        s.dtype = np.dtype(np.float32)
+        solver = plinkohit.build_scene(s, mesh_path=hit, device="cuda")
+        ensemble_bench("plinkohit-synthetic -a 1 -am 5", solver, None)
+        ensemble_scaling(solver)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        for order in ("xzu", "zxu"):
+            for path in ("dense", "cg"):
+                tiny_parity(order, path)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        # Two ranks on the one card through gloo (NCCL refuses two ranks
+        # on one GPU), each with half of every element batch; both orders
+        # on the dense and the CG global step.
+        t0 = time.perf_counter()
+        summary = dryrun(2, timeout=300)
+        for key in ("xzu", "zxu", "xzu_cg", "zxu_cg"):
+            o = summary[key]
+            check(o["max_dx"] < 1e-10 and o["max_dprim"] < 1e-8,
+                  f"element-sharded {key}: {o}")
+        print(f"  ({time.perf_counter() - t0:.1f} s with the ranks' start)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = ck.launch_counts()
+    print(f"  kernel launches in phase 12: {counts} (the physics path runs "
+          f"none of the port's kernels)")
+
+
 def main(argv):
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1843,7 +2057,7 @@ def main(argv):
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from aa_admm_tpu_torch.ops import cuda_kernels as ck
-    want = set(range(1, 12))
+    want = set(range(1, 13))
     if argv[:1] == ["--phases"] and len(argv) == 2:
         want = {1} | {int(a) for a in argv[1].split(",")}
     elif argv:
@@ -1925,7 +2139,12 @@ def main(argv):
         phase_bits(ck, solver if 5 in want else None)
         phase("11 fixed-order scatter: bit-equal repeats", t0)
 
-    if want != set(range(1, 12)):
+    if 12 in want:
+        t0 = time.perf_counter()
+        phase_ensembles(ck)
+        phase("12 scene ensembles and element sharding", t0)
+
+    if want != set(range(1, 13)):
         print(f"  total {time.perf_counter() - T0:.1f} s; phases "
               f"{sorted(want)} only, so no result lines")
         return 3
