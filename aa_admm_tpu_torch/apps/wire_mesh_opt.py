@@ -110,12 +110,17 @@ def optimize_mesh(mesh: PolyMesh, ref_verts, ref_faces, max_iter, anderson_m,
                   max_angle_radian=np.pi * 0.75, edge_length=1.0,
                   closeness_weight=1.0, laplacian_weight=-1.0,
                   dtype=np.float64, result_dir="result", chunk_iters=None,
-                  device=None):
+                  device=None, dense_threshold=None, device_mesh=None):
     """WireMeshOpt.cpp optimize_mesh (:232-337). At f32 the warm-started CG
     is capped at F32_CG_ITERS iterations per ALM trial; f64 keeps the tight
-    solve."""
+    solve. dense_threshold: set on the solver when given (the dense
+    inverse up to that many vertices, else CG). device_mesh
+    (parallel.geometry.make_vert_mesh): solve sharded over its ranks, each
+    of which calls this; the first rank writes the residual file."""
     p = mesh.verts
     solver = ALMGeometrySolver(device=device)
+    if dense_threshold is not None:
+        solver.dense_threshold = dense_threshold
     solver.dtype = np.dtype(dtype)
 
     if closeness_weight > 0:
@@ -143,10 +148,13 @@ def optimize_mesh(mesh: PolyMesh, ref_verts, ref_faces, max_iter, anderson_m,
     print(f"Relative residual eps (normalized by edge length): {eps_ratio}")
 
     if solver.setup_ADMM(mesh.n_verts(), penalty_parameter):
+        if device_mesh is not None:
+            solver.shard(device_mesh)
         cg_max_iters = F32_CG_ITERS if np.dtype(dtype) == np.float32 else None
         solver.solve_ADMM(p, rel_residual_eps, max_iter, anderson_m,
                           cg_max_iters=cg_max_iters, chunk_iters=chunk_iters)
-        solver.save(anderson_m, result_dir)
+        if solver.system.shard is None or solver.system.shard.lo == 0:
+            solver.save(anderson_m, result_dir)
     return solver
 
 

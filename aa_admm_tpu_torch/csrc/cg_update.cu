@@ -42,6 +42,17 @@
 // B3 (not yet redesigned): a partial-sum launch, then an update launch in
 // which every block reduces the partials in one fixed order, forms beta
 // and updates p = z + beta p in place; block 0 writes rz_new.
+//
+// The given entries, for a CG whose rows are split over ranks (the sharded
+// geometry solve): alpha and beta need the column dots of ALL rows, so the
+// caller forms each rank's partial dot (cg_dot), sums the partials over the
+// ranks and hands the sum in. No grid-wide barrier, so no launch relies on
+// its grid being resident at once (two rank processes may share a card):
+//   cg_dot: partials over a fixed grid (B3's first launch), then one block
+//     reduces them in a fixed order;
+//   cg_update1_given: from the summed pAp, alpha; x += alpha p, r -= alpha
+//     Ap and this rank's r.r partials; then one block reduces them;
+//   cg_update2_given: from the summed rz_new, beta; p = z + beta p.
 
 #include <cuda_runtime.h>
 
@@ -328,6 +339,95 @@ __global__ void cg2_update(const T* __restrict__ rz_old, const T* __restrict__ r
   }
 }
 
+// One block reduces the partials (nb, C) of an earlier launch to out (C,).
+template <typename T, int C>
+__global__ void reduce_final(const T* __restrict__ partials, int nb, T* __restrict__ out) {
+  T s[C];
+  reduce_partials<T, C, kThreads, false>(partials, nb, s);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) out[j] = s[j];
+  }
+}
+
+// cg_update1_given's update: alpha from the given (all-rank) pAp; x, r
+// updated in place; partials[block, j] = this block's sum of r.r.
+template <typename T, int C>
+__global__ void cg1_given(const T* __restrict__ pap, const T* __restrict__ rz,
+                          const T* __restrict__ rr_prev, const T* __restrict__ thresh,
+                          const T* __restrict__ p, const T* __restrict__ ap,
+                          T* __restrict__ x, T* __restrict__ r,
+                          T* __restrict__ partials, long long n) {
+  T alpha[C], v[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const T a = rz[j] / (pap[j] == T(0) ? T(1) : pap[j]);
+    alpha[j] = rr_prev[j] > thresh[j] ? a : T(0);
+    v[j] = T(0);
+  }
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const long long e = i * C + j;
+      x[e] = x[e] + alpha[j] * p[e];
+      const T re = r[e] - alpha[j] * ap[e];
+      r[e] = re;
+      v[j] += re * re;
+    }
+  }
+  T s[C];
+  block_sum<T, C, kThreads>(v, s);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) partials[blockIdx.x * C + j] = s[j];
+  }
+}
+
+// cg_update2_given: beta from the given (all-rank) rz_new; p = z + beta p.
+template <typename T, int C>
+__global__ void cg2_given(const T* __restrict__ rz, const T* __restrict__ rz_old,
+                          const T* __restrict__ rr_prev, const T* __restrict__ thresh,
+                          const T* __restrict__ z, T* __restrict__ p, long long n) {
+  T beta[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const T b = rz[j] / (rz_old[j] == T(0) ? T(1) : rz_old[j]);
+    beta[j] = rr_prev[j] > thresh[j] ? b : T(0);
+  }
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const long long e = i * C + j;
+      p[e] = z[e] + beta[j] * p[e];
+    }
+  }
+}
+
+template <typename T, int C>
+int dot(const T* a, const T* b, T* out, T* partials, long long n, int nb, cudaStream_t s) {
+  col_dot_partial<T, C><<<nb, kThreads, 0, s>>>(a, b, n, partials);
+  reduce_final<T, C><<<1, kThreads, 0, s>>>(partials, nb, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int C>
+int update1_given(const T* pap, const T* rz, const T* rr_prev, const T* thresh, const T* p,
+                  const T* ap, T* x, T* r, T* rr, T* partials, long long n, int nb,
+                  cudaStream_t s) {
+  cg1_given<T, C><<<nb, kThreads, 0, s>>>(pap, rz, rr_prev, thresh, p, ap, x, r, partials, n);
+  reduce_final<T, C><<<1, kThreads, 0, s>>>(partials, nb, rr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int C>
+int update2_given(const T* rz, const T* rz_old, const T* rr_prev, const T* thresh, const T* z,
+                  T* p, long long n, int nb, cudaStream_t s) {
+  cg2_given<T, C><<<nb, kThreads, 0, s>>>(rz, rz_old, rr_prev, thresh, z, p, n);
+  return (int)cudaGetLastError();
+}
+
 // 4-row chunks per thread for n rows over nb blocks: 1 or 2 held in
 // registers, or 0 when more (the kernel then reads its rows again after
 // the barrier).
@@ -427,6 +527,42 @@ int dispatch2(const void* rz_old, const void* rr_prev, const void* thresh, const
 #undef CG2_ARGS
 }
 
+// c = 1..4 columns to the template of C columns; other c: invalid value.
+#define CG_BY_COLS(fn, ...)                                \
+  switch (c) {                                             \
+    case 1: return fn<T, 1>(__VA_ARGS__);                  \
+    case 2: return fn<T, 2>(__VA_ARGS__);                  \
+    case 3: return fn<T, 3>(__VA_ARGS__);                  \
+    case 4: return fn<T, 4>(__VA_ARGS__);                  \
+    default: return (int)cudaErrorInvalidValue;            \
+  }
+
+template <typename T>
+int dispatch_dot(const void* a, const void* b, void* out, void* partials, long long n, int c,
+                 int nb, void* stream) {
+  CG_BY_COLS(dot, (const T*)a, (const T*)b, (T*)out, (T*)partials, n, nb,
+             (cudaStream_t)stream)
+}
+
+template <typename T>
+int dispatch1_given(const void* pap, const void* rz, const void* rr_prev, const void* thresh,
+                    const void* p, const void* ap, void* x, void* r, void* rr, void* partials,
+                    long long n, int c, int nb, void* stream) {
+  CG_BY_COLS(update1_given, (const T*)pap, (const T*)rz, (const T*)rr_prev,
+             (const T*)thresh, (const T*)p, (const T*)ap, (T*)x, (T*)r, (T*)rr,
+             (T*)partials, n, nb, (cudaStream_t)stream)
+}
+
+template <typename T>
+int dispatch2_given(const void* rz, const void* rz_old, const void* rr_prev,
+                    const void* thresh, const void* z, void* p, long long n, int c, int nb,
+                    void* stream) {
+  CG_BY_COLS(update2_given, (const T*)rz, (const T*)rz_old, (const T*)rr_prev,
+             (const T*)thresh, (const T*)z, (T*)p, n, nb, (cudaStream_t)stream)
+}
+
+#undef CG_BY_COLS
+
 }  // namespace
 
 extern "C" {
@@ -463,6 +599,42 @@ int cg_update2_f64(const void* rz_old, const void* rr_prev, const void* thresh, 
                    const void* z, void* p, void* rz, void* partials, long long n, int c,
                    int nb, void* stream) {
   return dispatch2<double>(rz_old, rr_prev, thresh, r, z, p, rz, partials, n, c, nb, stream);
+}
+
+int cg_dot_f32(const void* a, const void* b, void* out, void* partials, long long n, int c,
+               int nb, void* stream) {
+  return dispatch_dot<float>(a, b, out, partials, n, c, nb, stream);
+}
+
+int cg_dot_f64(const void* a, const void* b, void* out, void* partials, long long n, int c,
+               int nb, void* stream) {
+  return dispatch_dot<double>(a, b, out, partials, n, c, nb, stream);
+}
+
+int cg_update1_given_f32(const void* pap, const void* rz, const void* rr_prev,
+                         const void* thresh, const void* p, const void* ap, void* x, void* r,
+                         void* rr, void* partials, long long n, int c, int nb, void* stream) {
+  return dispatch1_given<float>(pap, rz, rr_prev, thresh, p, ap, x, r, rr, partials, n, c, nb,
+                                stream);
+}
+
+int cg_update1_given_f64(const void* pap, const void* rz, const void* rr_prev,
+                         const void* thresh, const void* p, const void* ap, void* x, void* r,
+                         void* rr, void* partials, long long n, int c, int nb, void* stream) {
+  return dispatch1_given<double>(pap, rz, rr_prev, thresh, p, ap, x, r, rr, partials, n, c,
+                                 nb, stream);
+}
+
+int cg_update2_given_f32(const void* rz, const void* rz_old, const void* rr_prev,
+                         const void* thresh, const void* z, void* p, long long n, int c,
+                         int nb, void* stream) {
+  return dispatch2_given<float>(rz, rz_old, rr_prev, thresh, z, p, n, c, nb, stream);
+}
+
+int cg_update2_given_f64(const void* rz, const void* rz_old, const void* rr_prev,
+                         const void* thresh, const void* z, void* p, long long n, int c,
+                         int nb, void* stream) {
+  return dispatch2_given<double>(rz, rz_old, rr_prev, thresh, z, p, n, c, nb, stream);
 }
 
 }  // extern "C"

@@ -12,7 +12,9 @@ kernel runs, on CPU tensors its plain twin.
 
 Host reads: each cached query decides on the host whether the cache is still
 valid (one read of ``need``) and returns that decision, so the caller can
-count it. Top-k selections whose order feeds cache contents use a stable
+count it. A query set split over ranks passes ``reduce`` (a sum over the
+ranks): the test is then taken over every rank's queries, so all ranks
+refresh together, on the trials where the whole set would. Top-k selections whose order feeds cache contents use a stable
 ascending sort, which puts the lower index first on ties, as
 ``jax.lax.top_k`` does.
 """
@@ -334,16 +336,20 @@ def _cp_refresh_group(p, tri_blk, cent_blk, rad_blk, gcenter, gradius,
             CPCacheGroup(gidx=torch.cat(gidxs), p0=p, slack=torch.cat(slacks)))
 
 
-def _needs_refresh(p, cache) -> bool:
-    """The cache-validity test, read on the host (one device sync)."""
+def _needs_refresh(p, cache, reduce=None) -> bool:
+    """The cache-validity test, read on the host (one device sync); with
+    reduce, "any" over every rank's queries (the ranks' counts summed)."""
     moved = torch.sqrt(((p - cache.p0) ** 2).sum(-1))
-    return bool((2.0 * moved >= cache.slack).any())
+    need = (2.0 * moved >= cache.slack).any()
+    if reduce is not None:
+        need = reduce(need.to(p.dtype).reshape(1))[0] > 0
+    return bool(need)
 
 
 def closest_point_cached_group(p, tri_blk, cent_blk, rad_blk, gcenter,
                                gradius, cache: CPCacheGroup,
                                sub_size: int = 16, query_tile: int = 8192,
-                               fast_tile: int = 65536):
+                               fast_tile: int = 65536, reduce=None):
     """Exact closest point via the subgroup cache; self-refreshing.
     Returns (points (Q, 3), cache, refreshed). The fast path sweeps each
     query's NG subgroups of ``sub_size`` contiguous triangles with kernel B1
@@ -351,7 +357,7 @@ def closest_point_cached_group(p, tri_blk, cent_blk, rad_blk, gcenter,
     candidate buffer of the twin on CPU tensors."""
     ng = int(cache.gidx.shape[1])
     tri_blk = tri_blk.to(p.dtype)
-    if _needs_refresh(p, cache):
+    if _needs_refresh(p, cache, reduce):
         q, cache = _cp_refresh_group(
             p, tri_blk, cent_blk.to(p.dtype), rad_blk.to(p.dtype),
             gcenter.to(p.dtype), gradius.to(p.dtype), ng, sub_size,
@@ -367,14 +373,14 @@ def closest_point_cached_group(p, tri_blk, cent_blk, rad_blk, gcenter,
 
 
 def closest_point_cached(p, tri_verts, cache: CPCache,
-                         query_tile: int = 4096):
+                         query_tile: int = 4096, reduce=None):
     """Exact closest point using the flat candidate cache; self-refreshing.
     Returns (points (Q, 3), cache, refreshed). With ``cache.candT`` the fast
     path is kernel B1 alone on the cached coordinates."""
     k = int(cache.idx.shape[1])
     tri_verts = tri_verts.to(p.dtype)
     with_candT = cache.candT is not None
-    if _needs_refresh(p, cache):
+    if _needs_refresh(p, cache, reduce):
         q, cache = _cp_refresh(p, tri_verts, k, query_tile,
                                with_candT=with_candT)
         return q, cache, True

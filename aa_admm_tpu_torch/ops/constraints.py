@@ -9,6 +9,10 @@ Each batch is a frozen dataclass of tensors with
     the batch is made): the same bits on every run, on every device;
   * ``project(p)`` — the constraint projection.
 
+``ELEM_FIELDS`` names the fields with one row per constraint, the ones a
+split over ranks cuts (``parallel/geometry.py``); every other tensor field
+(a reference surface's triangles and groups) is whole on every rank.
+
 Weights: each constraint carries w = sqrt(weight) (Constraint.h:62-68).
 Batches are created on the CPU at f64 with f64 NumPy host mirrors; the
 solver's setup moves them to its dtype and device (``cast_floats``). Index
@@ -18,7 +22,7 @@ tensors are int64.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 import numpy as np
 import torch
@@ -61,6 +65,7 @@ class PlaneBatch(GatherAdjoint):
     are masked to zero in every transform, scatter and projection (and
     left out of the inverse table)."""
 
+    ELEM_FIELDS: ClassVar[tuple] = ("idx", "mask", "count", "w")
     idx: torch.Tensor    # (C, K) int64, padded
     mask: torch.Tensor   # (C, K) bool
     count: torch.Tensor  # (C,) float — valence
@@ -127,6 +132,7 @@ class AngleBatch(GatherAdjoint):
     """3-point angle clamp to [min,max] radians, SUBTRACT_FIRST transform
     (AngleConstraint, Constraint.h:220-296). Block shape (C, 2, 3)."""
 
+    ELEM_FIELDS: ClassVar[tuple] = ("idx", "w", "min_angle", "max_angle")
     idx: torch.Tensor        # (C, 3) tip, side1, side2
     w: torch.Tensor          # (C,)
     min_angle: torch.Tensor  # (C,)
@@ -213,6 +219,7 @@ class EdgeLengthBatch(GatherAdjoint):
     """Edge vector projected to target length, SUBTRACT_FIRST
     (EdgeLengthConstraint, Constraint.h:194-218). Block (C, 1, 3)."""
 
+    ELEM_FIELDS: ClassVar[tuple] = ("idx", "w", "target")
     idx: torch.Tensor      # (C, 2)
     w: torch.Tensor        # (C,)
     target: torch.Tensor   # (C,)
@@ -256,6 +263,7 @@ class ClosenessBatch(GatherAdjoint):
     """Pin a vertex toward a target, IDENTITY transform (ClosenessConstraint,
     Constraint.h:299-326, implemented correctly as in the JAX package)."""
 
+    ELEM_FIELDS: ClassVar[tuple] = ("idx", "w", "target")
     idx: torch.Tensor     # (C,)
     w: torch.Tensor       # (C,)
     target: torch.Tensor  # (C, 3)
@@ -293,6 +301,7 @@ class RefSurfaceBatch(GatherAdjoint):
     """Closest-point projection of vertices onto a fixed reference trimesh
     (PointToRefSurfaceConstraint, Constraint.h:328-394). Block (C, 1, 3)."""
 
+    ELEM_FIELDS: ClassVar[tuple] = ("idx", "w")
     idx: torch.Tensor        # (C,)
     w: torch.Tensor          # (C,)
     tri_verts: torch.Tensor  # (T, 3, 3) reference surface triangles
@@ -370,18 +379,19 @@ class RefSurfaceBatch(GatherAdjoint):
         Q, k = int(self.idx.shape[0]), min(48, T)
         return cp_cache_init(Q, k, dtype, dev, with_candT=Q * k <= _CANDT_MAX)
 
-    def project_cached(self, p, cache):
+    def project_cached(self, p, cache, reduce=None):
         """project() through the movement-bounded candidate cache — exact,
         self-refreshing. Returns (proj, cache, refreshed); deciding whether
-        to refresh is one host read."""
+        to refresh is one host read (taken over every rank's queries when a
+        split batch passes its ranks' sum as reduce)."""
         if self.grp_tris is not None:
             q, cache, refreshed = closest_point_cached_group(
                 p[:, 0], self.grp_tris, self.grp_cent, self.grp_rad,
                 self.grp_gcenter, self.grp_gradius, cache,
-                sub_size=self.cp_sub)
+                sub_size=self.cp_sub, reduce=reduce)
         else:
-            q, cache, refreshed = closest_point_cached(p[:, 0],
-                                                       self.tri_verts, cache)
+            q, cache, refreshed = closest_point_cached(
+                p[:, 0], self.tri_verts, cache, reduce=reduce)
         return q[:, None, :], cache, refreshed
 
 

@@ -10,6 +10,11 @@ replace the JAX package's three Pallas kernels
 * B2 ``cg_update1`` — the post-matvec half of a CG iteration, one launch
   (replaces ``_cg_k1``).
 * B3 ``cg_update2`` — the post-preconditioner half (replaces ``_cg_k2``).
+* The given entries of B2 and B3, for a CG whose rows are split over ranks
+  (the sharded geometry solve): ``cg_dot`` (this rank's column dots, in a
+  fixed order), ``cg_update1_given`` (B2's update from an all-rank pAp; it
+  returns this rank's r.r) and ``cg_update2_given`` (B3's update from an
+  all-rank rz). None waits on a grid-wide barrier.
 
 Dispatch is by the tensors' device alone: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the twin. Nothing falls back.
@@ -23,7 +28,8 @@ synchronize, and returns ``cudaGetLastError()``.
 
 Launch counters (``ericson_launches`` for the plane entry,
 ``ericson_idx_launches`` for the indexed entry, ``cg_update1_launches``,
-``cg_update2_launches``) count one per wrapper call that launched its
+``cg_update2_launches``, ``cg_dot_launches``, ``cg_update1_given_launches``,
+``cg_update2_given_launches``) count one per wrapper call that launched its
 kernel, however many CUDA launches that call takes.
 
 Cached state, per process: B1's padded copy of each triangle table (a few
@@ -58,6 +64,9 @@ ericson_launches = 0
 ericson_idx_launches = 0
 cg_update1_launches = 0
 cg_update2_launches = 0
+cg_dot_launches = 0
+cg_update1_given_launches = 0
+cg_update2_given_launches = 0
 
 _LIBS: dict = {}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -70,10 +79,15 @@ _ARGTYPES = {
     "cg_update1": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "cg_update1_max_blocks": [_I, _I, _P],
     "cg_update2": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "cg_dot": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "cg_update1_given": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                         _P],
+    "cg_update2_given": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
 }
 _LIB_OF = {"ericson_candidates": "ericson", "ericson_candidates_idx": "ericson",
            "cg_update1": "cg_update", "cg_update1_max_blocks": "cg_update",
-           "cg_update2": "cg_update"}
+           "cg_update2": "cg_update", "cg_dot": "cg_update",
+           "cg_update1_given": "cg_update", "cg_update2_given": "cg_update"}
 # B1: lanes per query are raised (powers of two up to 32) until about this
 # many threads are in flight: four 256-thread blocks on each of 132 SMs.
 ERICSON_TARGET_THREADS = 131072
@@ -96,14 +110,20 @@ _CG1_SCRATCH: dict = {}      # (device index, dtype, c, blocks) -> tensors
 def reset_launch_counts():
     global ericson_launches, ericson_idx_launches
     global cg_update1_launches, cg_update2_launches
+    global cg_dot_launches, cg_update1_given_launches
+    global cg_update2_given_launches
     ericson_launches = ericson_idx_launches = 0
     cg_update1_launches = cg_update2_launches = 0
+    cg_dot_launches = cg_update1_given_launches = 0
+    cg_update2_given_launches = 0
 
 
 def launch_counts() -> dict:
     return {"ericson": ericson_launches, "ericson_idx": ericson_idx_launches,
             "cg_update1": cg_update1_launches,
-            "cg_update2": cg_update2_launches}
+            "cg_update2": cg_update2_launches, "cg_dot": cg_dot_launches,
+            "cg_update1_given": cg_update1_given_launches,
+            "cg_update2_given": cg_update2_given_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -456,3 +476,93 @@ def cg_update2(rz_old, r, z, p, rr_prev, thresh):
              partials.data_ptr(), n, c, nb, _stream(p.device)), "cg_update2")
     cg_update2_launches += 1
     return rz
+
+
+# ---------------------------------------------------------------------------
+# The given entries: B2 and B3 on a rank's rows, from all-rank dots
+# ---------------------------------------------------------------------------
+
+def cg_dot_plain(a, b):
+    """Twin of cg_dot: the column dots a.b of (n, c) vectors."""
+    return (a * b).sum(0)
+
+
+def cg_update1_given_plain(pap, rz, p, ap, x, r, rr_prev, thresh):
+    """Twin of cg_update1_given: alpha = rz / pAp (pAp = 0 divides by 1) from
+    the given pAp, 0 for frozen columns; x += alpha p and r -= alpha Ap in
+    place; returns r.r of these rows per column."""
+    a = rz / torch.where(pap == 0, torch.ones_like(pap), pap)
+    alpha = torch.where(rr_prev > thresh, a, torch.zeros_like(a))
+    x.add_(alpha[None, :] * p)
+    r.sub_(alpha[None, :] * ap)
+    return (r * r).sum(0)
+
+
+def cg_update2_given_plain(rz, rz_old, z, p, rr_prev, thresh):
+    """Twin of cg_update2_given: beta = rz / rz_old (rz_old = 0 divides by
+    1) from the given rz, 0 for frozen columns; p = z + beta p in place."""
+    b = rz / torch.where(rz_old == 0, torch.ones_like(rz_old), rz_old)
+    beta = torch.where(rr_prev > thresh, b, torch.zeros_like(b))
+    p.copy_(z + beta[None, :] * p)
+
+
+def _cg_cols(entry, c):
+    _require(1 <= c <= CG_MAX_COLS, f"{entry}: c must be in 1..{CG_MAX_COLS}")
+
+
+def cg_dot(a, b):
+    """This rank's column dots a.b (c,) of (n, c) vectors: a fixed grid of
+    per-block partial sums (B3's first launch), reduced by one block in a
+    fixed order. The partials that the given entries are handed, summed
+    over the ranks."""
+    global cg_dot_launches
+    n, c = _check_cg("cg_dot", [a, b], [])
+    if not _on_cuda([a, b], "cg_dot"):
+        return cg_dot_plain(a, b)
+    _cg_cols("cg_dot", c)
+    nb = cg_blocks(n)
+    partials = torch.empty((nb, c), dtype=a.dtype, device=a.device)
+    out = torch.empty((c,), dtype=a.dtype, device=a.device)
+    _check(_fn("cg_dot", a.dtype)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  partials.data_ptr(), n, c, nb,
+                                  _stream(a.device)), "cg_dot")
+    cg_dot_launches += 1
+    return out
+
+
+def cg_update1_given(pap, rz, p, ap, x, r, rr_prev, thresh):
+    """B2 on this rank's rows with pAp given (summed over the ranks): x and
+    r updated in place; returns this rank's r.r (c,), to be summed over the
+    ranks. An update launch over B3's grid, then one block reduces its r.r
+    partials in a fixed order."""
+    global cg_update1_given_launches
+    n, c = _check_cg("cg_update1_given", [p, ap, x, r],
+                     [pap, rz, rr_prev, thresh])
+    if not _on_cuda([pap, rz, p, ap, x, r, rr_prev, thresh],
+                    "cg_update1_given"):
+        return cg_update1_given_plain(pap, rz, p, ap, x, r, rr_prev, thresh)
+    _cg_cols("cg_update1_given", c)
+    nb = cg_blocks(n)
+    partials = torch.empty((nb, c), dtype=x.dtype, device=x.device)
+    rr = torch.empty((c,), dtype=x.dtype, device=x.device)
+    _check(_fn("cg_update1_given", x.dtype)(
+        pap.data_ptr(), rz.data_ptr(), rr_prev.data_ptr(), thresh.data_ptr(),
+        p.data_ptr(), ap.data_ptr(), x.data_ptr(), r.data_ptr(), rr.data_ptr(),
+        partials.data_ptr(), n, c, nb, _stream(x.device)), "cg_update1_given")
+    cg_update1_given_launches += 1
+    return rr
+
+
+def cg_update2_given(rz, rz_old, z, p, rr_prev, thresh):
+    """B3 on this rank's rows with rz_new given (summed over the ranks):
+    p = z + beta p in place, one launch."""
+    global cg_update2_given_launches
+    n, c = _check_cg("cg_update2_given", [z, p], [rz, rz_old, rr_prev, thresh])
+    if not _on_cuda([rz, rz_old, z, p, rr_prev, thresh], "cg_update2_given"):
+        return cg_update2_given_plain(rz, rz_old, z, p, rr_prev, thresh)
+    _cg_cols("cg_update2_given", c)
+    _check(_fn("cg_update2_given", p.dtype)(
+        rz.data_ptr(), rz_old.data_ptr(), rr_prev.data_ptr(),
+        thresh.data_ptr(), z.data_ptr(), p.data_ptr(), n, c, cg_blocks(n),
+        _stream(p.device)), "cg_update2_given")
+    cg_update2_given_launches += 1

@@ -219,15 +219,20 @@ def make_mesh(world: int, prefer_dp: int = 2):
 
 class ElemComm:
     """Sums over the element group of a sharded system; ``count`` is the
-    number of collectives issued."""
+    number of collectives issued, ``nbytes`` the bytes they summed (each
+    tensor's size once), ``seconds`` the host's wall time inside them (for
+    CUDA tensors gloo first waits for the device to produce them)."""
 
     def __init__(self, group):
-        self.group, self.count = group, 0
+        self.group, self.count, self.nbytes, self.seconds = group, 0, 0, 0.0
 
     def all_reduce(self, t):
+        t0 = time.perf_counter()
         t = t.contiguous()
         dist.all_reduce(t, group=self.group)
         self.count += 1
+        self.nbytes += t.numel() * t.element_size()
+        self.seconds += time.perf_counter() - t0
         return t
 
 

@@ -14,6 +14,16 @@
 
 The loop condition is read on the host once per iteration; both CG
 functions return ``(x, iterations, host_reads)``.
+
+Row-sharded CG (the counterpart of ``row_sharding``): ``pcg_fused`` with
+``reduce`` (a function that sums a tensor over the ranks) takes the
+vectors, the operator and the preconditioner as this rank's rows, and sums
+the column dots over the ranks: one sum for pAp and one for the stacked
+{rz, rr} per iteration, as the JAX pcg's psums (one more at the start for
+the stacked {rz, rr, rhs.rhs}). Every rank then reads the same loop test.
+The operator assembles the rows of p that it reads from other ranks
+itself. B2 and B3 run there through their given entries (their twins on
+CPU tensors).
 """
 
 from __future__ import annotations
@@ -148,16 +158,22 @@ def pcg(operator: Callable, rhs, diag, tol: float = 1e-12,
 
 def pcg_fused(operator: Callable, rhs, diag, tol: float = 1e-12,
               max_iters: int = 400, x0=None,
-              precond: Optional[Callable] = None):
+              precond: Optional[Callable] = None,
+              reduce: Optional[Callable] = None):
     """pcg with the vector half of each iteration in kernels B2
     ({pAp, alpha, x +=, r -=, rr}) and B3 ({rz, beta, p =}). Same semantics
     as pcg; the column dots are summed in another order. x0 is not
-    modified. Returns (x, n_iters, host_reads)."""
+    modified. Returns (x, n_iters, host_reads). With reduce (a row-sharded
+    solve) B2 and B3 run through their given entries, fed the all-rank
+    pAp and {rz, rr}."""
     if precond is None:
         precond = _jacobi(diag)
     x = torch.zeros_like(rhs) if x0 is None else x0.clone()
     r = rhs - operator(x)
     p = precond(r)
+    if reduce is not None:
+        return _pcg_given(operator, rhs, tol, max_iters, x, r, p, precond,
+                          reduce)
     rz, rr = (r * p).sum(0), (r * r).sum(0)
     thresh = torch.clamp_min((rhs * rhs).sum(0), 1e-300) * (tol * tol)
     it = reads = 0
@@ -170,5 +186,33 @@ def pcg_fused(operator: Callable, rhs, diag, tol: float = 1e-12,
         z = precond(r)
         rz = ck.cg_update2(rz, r, z, p, rr, thresh)
         rr = rr_new
+        it += 1
+    return x, it, reads
+
+
+def _summed(reduce, *cols):
+    """The (c,) column dots `cols` summed over the ranks in one collective
+    (stacked)."""
+    return tuple(reduce(torch.stack(cols)).unbind(0))
+
+
+def _pcg_given(operator, rhs, tol, max_iters, x, r, p, precond, reduce):
+    """pcg_fused's loop on a rank's rows: the rank's column dots (cg_dot)
+    summed over the ranks, then B2 and B3 through their given entries."""
+    rz, rr, rhs2 = _summed(reduce, (r * p).sum(0), (r * r).sum(0),
+                           (rhs * rhs).sum(0))
+    thresh = torch.clamp_min(rhs2, 1e-300) * (tol * tol)
+    it = reads = 0
+    while it < max_iters:
+        reads += 1
+        if not bool((rr > thresh).any()):
+            break
+        Ap = operator(p)
+        pAp = reduce(ck.cg_dot(p, Ap))
+        rr_part = ck.cg_update1_given(pAp, rz, p, Ap, x, r, rr, thresh)
+        z = precond(r)
+        rz_new, rr_new = _summed(reduce, ck.cg_dot(r, z), rr_part)
+        ck.cg_update2_given(rz_new, rz, z, p, rr, thresh)
+        rz, rr = rz_new, rr_new
         it += 1
     return x, it, reads

@@ -9,6 +9,12 @@ index remapping, and its dense inverse. One application is
 each aggregate's rows, in gather form over an inverse table built at set-up,
 so in one fixed order), one (nc, nc) @ (nc, 3) matmul and a gather
 (prolongation). The additive form keeps the preconditioner SPD.
+
+On a row shard (``parallel/geometry.py``) ``agg`` and ``inv_diag`` hold the
+rank's rows and the restriction's table covers them only: each rank sums
+its rows into a partial coarse vector, ``apply``'s ``reduce`` sums the
+partials over the ranks (one small collective), the coarse solve is
+replicated and the prolongation stays local.
 """
 
 from __future__ import annotations
@@ -129,8 +135,12 @@ class TwoLevelPrecond(GatherAdjoint):
     def _adjoint_index(self):
         return self.agg, None, self.inv_diag.dtype
 
-    def apply(self, r):
+    def apply(self, r, reduce=None):
+        """M^-1 r; reduce: None, or the sum over the ranks of a row shard's
+        partial coarse vector."""
         rc = self._scatter(r, self.Ac_inv.shape[0])
+        if reduce is not None:
+            rc = reduce(rc)
         yc = self.Ac_inv @ rc
         return self.inv_diag[:, None] * r + yc[self.agg]
 

@@ -12,7 +12,9 @@ non-zero before the final result line):
      times of kernel and twin (CUDA-graph replays between CUDA events)
      beside the kernel's bound; B1's indexed entry also against the chain
      it replaced (gather, relayout, plane entry); B2 called twice must give
-     equal bits;
+     equal bits; the given entries of B2 and B3 and their dot pass
+     (cg_dot) at a rank's share of the main path's rows, equal bits on a
+     repeat;
   4. a small float64 wire-mesh solve on the CG path (group closest-point
      cache, reference > 20,000 triangles) on the GPU and on the CPU through
      the port: function values and solution must agree; then the same on
@@ -85,7 +87,18 @@ non-zero before the final result line):
      gloo, each holding half of every element batch: both orders, on the
      dense and the CG global step, against the unsharded float64 step
      (max|dx| < 1e-10, max|dprim| < 1e-8), with iterations/s and
-     collectives per step.
+     collectives per step;
+ 13. the geometry solve sharded over vertex rows and constraint elements
+     (aa_admm_tpu_torch/parallel/geometry.py), two gloo ranks on the one
+     card: the float64 dryrun (max|dx| < 1e-9, max|dfv/fv| < 1e-8); phase
+     4's small scene in float64 on the CG path with the subgroup cache
+     against the unsharded solve on the card (rtol 1e-8, equal rejects and
+     refreshes); and the main path of this phase, wiremesh-synthetic-231k
+     in float32 for 5 ALM iterations through ``optimize_mesh`` sharded
+     over the two ranks: the mean edge error must fall, bench.py's bounds
+     beside the errors, ms per trial beside phase 5's, collectives and
+     bytes per trial, each rank's launches (B1 and the given entries; the
+     unsharded B2 and B3 must not launch) and the ranks' bit-equality.
 
 ``--phases 1,2,7`` runs only the listed phases (phase 1 always runs); the
 result lines need every phase.
@@ -118,6 +131,7 @@ ERICSON_SHAPES = {"group fast path": (MAIN_Q, 6, 16),
                   "group refresh": (8192, 48, 1), "2-stage": (4096, 48, 1)}
 MAIN_T = 39808                 # the main path's triangle table (Morton-padded)
 MAIN_N = 230400                # CG vector rows at MaleTorso scale
+SHARD_N = MAIN_N // 2          # one of two ranks' rows (phase 13)
 # the kernels of the subgroup-cache path (phases 4 and 5), and of the flat
 # cache with cached (9, K, Q) candidates (phase 4, second solve)
 MAIN_PATH_KERNELS = ("ericson_idx", "cg_update1", "cg_update2")
@@ -615,26 +629,105 @@ def check_cg(ck, device, record, n_small):
                                 bound_by=by2, max_abs_err=worst2)
 
 
+def check_cg_given(ck, device, record):
+    """The given entries of B2 and B3 and their dot pass (cg_dot) against
+    their twins, with a frozen column and zero divisors, at a rank's share
+    of the main path's rows (230,400 / 2 = 115,200, c = 3) and at small and
+    ragged n, float32 and float64; each called twice must give equal bits.
+    Then timed at the shard's shape in f32 beside each bound (and cg_dot
+    beside torch.linalg.vecdot, the one PyTorch call that computes it)."""
+    n, c = SHARD_N, 3
+    rtol = {torch.float64: 1e-12, torch.float32: 1e-3}
+    worst = dict(cg_dot=0.0, cg_update1_given=0.0, cg_update2_given=0.0)
+    for dtype in (torch.float32, torch.float64):
+        for nc, cc in ((n, c), (81, 3), (70001, 4), (4099, 1), (0, 3)):
+            v, rz, rz_old, rr_prev, thresh = cg_inputs(nc, cc, dtype, device,
+                                                       nc + cc + 11)
+            pap = (v["p"] * v["ap"]).sum(0)
+            outs = []
+            for _ in range(2):
+                x, r, p = v["x"].clone(), v["r"].clone(), v["p"].clone()
+                d = ck.cg_dot(v["p"], v["ap"])
+                rr = ck.cg_update1_given(pap, rz, v["p"], v["ap"], x, r,
+                                         rr_prev, thresh)
+                ck.cg_update2_given(rz, rz_old, v["z"], p, rr_prev, thresh)
+                outs.append(dict(cg_dot=(d,), cg_update1_given=(x, r, rr),
+                                 cg_update2_given=(p,)))
+            x, r, p = v["x"].clone(), v["r"].clone(), v["p"].clone()
+            plain = dict(
+                cg_dot=(ck.cg_dot_plain(v["p"], v["ap"]),),
+                cg_update1_given=(x, r, ck.cg_update1_given_plain(
+                    pap, rz, v["p"], v["ap"], x, r, rr_prev, thresh)),
+                cg_update2_given=(p,))
+            ck.cg_update2_given_plain(rz, rz_old, v["z"], p, rr_prev, thresh)
+            torch.cuda.synchronize()
+            for name in worst:
+                check(all(torch.equal(a, b) for a, b in
+                          zip(outs[0][name], outs[1][name])),
+                      f"{name} n={nc} c={cc} {dtype}: two calls differ")
+                for i, (a, b) in enumerate(zip(outs[0][name], plain[name])):
+                    err = float((a - b).abs().max()) if a.numel() else 0.0
+                    # x, r and p element-wise at atol = rtol; the column
+                    # sums (cg_dot, rr) of nc terms of size ~1 also at an
+                    # atol of rtol * sqrt(nc), the size of a signed sum
+                    summed = (name, i) in (("cg_dot", 0),
+                                           ("cg_update1_given", 2))
+                    atol = rtol[dtype] * (max(nc, 1) ** 0.5 if summed else 1)
+                    check(torch.allclose(a, b, rtol=rtol[dtype], atol=atol),
+                          f"{name} n={nc} c={cc} {dtype}: max abs err {err}")
+                    if dtype == torch.float32:
+                        worst[name] = max(worst[name], err)
+            if cc > 1:
+                check(bool(torch.equal(outs[0]["cg_update1_given"][0][:, 1],
+                                       v["x"][:, 1])),
+                      "cg_update1_given: frozen column moved")
+    v, rz, rz_old, rr_prev, thresh = cg_inputs(n, c, torch.float32, device, 9)
+    x, r, p, ap, z = v["x"], v["r"], v["p"], v["ap"], v["z"]
+    pap = (p * ap).sum(0)
+    rz_old = (r * z).sum(0)           # beta ~ 1: repeated calls stay finite
+    w = 4
+    cases = {
+        "cg_dot": (lambda: ck.cg_dot(p, ap), lambda: ck.cg_dot_plain(p, ap),
+                   2 * n * c * w + c * w, 2 * n * c,
+                   lambda: torch.linalg.vecdot(p, ap, dim=0)),
+        "cg_update1_given": (
+            lambda: ck.cg_update1_given(pap, rz, p, ap, x, r, rr_prev,
+                                        thresh),
+            lambda: ck.cg_update1_given_plain(pap, rz, p, ap, x, r, rr_prev,
+                                              thresh),
+            6 * n * c * w + 5 * c * w, 6 * n * c, None),
+        "cg_update2_given": (
+            lambda: ck.cg_update2_given(rz_old, rz_old, z, p, rr_prev,
+                                        thresh),
+            lambda: ck.cg_update2_given_plain(rz_old, rz_old, z, p, rr_prev,
+                                              thresh),
+            3 * n * c * w + 4 * c * w, 2 * n * c, None)}
+    for name, (kern, twin, n_bytes, n_flops, lib) in cases.items():
+        ms, pl, ms_e, pl_e = time_pair(kern, twin)
+        lib_ms = device_ms(lib) if lib is not None else None
+        b, by = bound_ms(n_bytes, n_flops, torch.float32)
+        print(f"  {name} f32 n={n} c={c}: kernel {ms:.4f} ms, twin "
+              f"{pl:.4f} ms (device, CUDA graph); per eager call {ms_e:.4f} "
+              f"/ {pl_e:.4f} ms; bound {b:.4f} ms ({by})"
+              + (f"; torch.linalg.vecdot {lib_ms:.4f} ms" if lib else "")
+              + f"; repeats bit for bit, f32 max abs err vs twin "
+              f"{worst[name]:.3e}")
+        record[name] = dict(ms=ms, plain_ms=pl, bound_ms=b, bound_by=by,
+                            max_abs_err=worst[name], library_ms=lib_ms)
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the solve
 # ---------------------------------------------------------------------------
 
 def run_small_solve(device, n_ref, max_iter=20):
-    import functools
     from aa_admm_tpu_torch.apps import wire_mesh_opt as wm
-    from aa_admm_tpu_torch.solver.geometry import ALMGeometrySolver
 
     sub, el, ref_v, ref_f = small_scene(n_ref)
-    saved = wm.ALMGeometrySolver
-    wm.ALMGeometrySolver = functools.partial(ALMGeometrySolver,
-                                             dense_threshold=0)
-    try:
-        return wm.optimize_mesh(sub, ref_v, ref_f, max_iter=max_iter,
-                                anderson_m=5, edge_length=el,
-                                result_dir="result/smoke_small",
-                                device=device)
-    finally:
-        wm.ALMGeometrySolver = saved
+    return wm.optimize_mesh(sub, ref_v, ref_f, max_iter=max_iter,
+                            anderson_m=5, edge_length=el,
+                            result_dir="result/smoke_small", device=device,
+                            dense_threshold=0)
 
 
 def phase_f64_solve(ck, n_ref, path, device="cuda"):
@@ -732,7 +825,7 @@ def phase_full_solve(ck, device="cuda", scene=full_scene, max_iter=20):
           f"full solve: B1 launches {counts['ericson_idx']} != {split}")
     check(counts["ericson"] == 0,
           "full solve: materialised candidates on the subgroup-cache path")
-    return counts, solver, split
+    return counts, solver, split, (sub, el, ref_v, ref_f)
 
 
 def profile_trials(solver, init_x, n_iter=5, out="result/profile_full.txt"):
@@ -2050,6 +2143,155 @@ def phase_ensembles(ck):
           f"none of the port's kernels)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the geometry solve sharded over vertex rows and elements
+# ---------------------------------------------------------------------------
+
+SHARD_PATH_KERNELS = ("ericson_idx", "cg_dot", "cg_update1_given",
+                      "cg_update2_given")
+
+
+def scene_dict(sub, el, ref_v, ref_f):
+    """A wire-mesh scene as the plain arrays a spawned rank is handed."""
+    return dict(verts=np.asarray(sub.verts), faces=[list(f) for f in sub.faces],
+                ref_v=np.asarray(ref_v), ref_f=np.asarray(ref_f),
+                edge_length=el)
+
+
+def sharded_f64_small(ck, device="cuda"):
+    """Phase 4's small scene (20,402-triangle reference: the subgroup
+    cache), f64, on the CG path: 2 gloo ranks on the card against the
+    unsharded solve on the card (rtol 1e-8, equal rejects and refreshes)."""
+    from aa_admm_tpu_torch.apps import wire_mesh_opt as wm
+    from aa_admm_tpu_torch.parallel import ensemble as ens
+    from aa_admm_tpu_torch.parallel import geometry as pgeo
+    sub, el, ref_v, ref_f = small_scene(SMALL_N_REF)
+    ref = wm.optimize_mesh(sub, ref_v, ref_f, max_iter=20, anderson_m=5,
+                           edge_length=el, result_dir="result/smoke_small",
+                           device=device, dense_threshold=0)
+    ranks = ens.run_ranks(2, pgeo.wire_mesh_case, scene_dict(sub, el, ref_v,
+                                                             ref_f),
+                          dict(max_iter=20, dense_threshold=0,
+                               device=device), timeout=240)
+    fv = np.asarray(ref.function_values)
+    st = ref.stats
+    rel = max(float(np.max(np.abs(r["fv"] / fv - 1))) if r["fv"].shape ==
+              fv.shape else np.inf for r in ranks)
+    dx = max(float(np.abs(r["x"] - ref.get_solution()).max()) for r in ranks)
+    same = all(r["rejects"] == ref.anderson_reset and all(
+        r["stats"][k] == st[k] for k in ("trials", "cp_refreshes"))
+        for r in ranks)
+    bits = (np.array_equal(ranks[0]["fv"], ranks[1]["fv"])
+            and np.array_equal(ranks[0]["x"], ranks[1]["x"]))
+    r0 = ranks[0]["stats"]
+    print(f"  f64 small scene, 2 ranks vs unsharded on the card: "
+          f"{len(fv)} iterations, {st['trials']} trials, "
+          f"{st['cp_refreshes']} refreshes (ranks {[r['stats']['cp_refreshes'] for r in ranks]}), "
+          f"max rel fv diff {rel:.3e}, max |x diff| {dx:.3e}, rejects equal "
+          f"{same}, ranks bit-equal {bits}; collectives {r0['collectives']} "
+          f"({r0['collectives'] / r0['trials']:.1f}/trial), launches rank 0 "
+          f"{ranks[0]['launches']}")
+    check(rel <= 1e-8, f"sharded f64 solve: function values differ by {rel}")
+    check(dx <= 1e-8, f"sharded f64 solve: solutions differ by {dx}")
+    check(same, "sharded f64 solve: rejects, trials or refreshes differ")
+    check(bits, "sharded f64 solve: the ranks' values differ")
+    for r in ranks:
+        check(all(r["launches"][k] > 0 for k in SHARD_PATH_KERNELS)
+              and r["launches"]["cg_update1"] == 0
+              and r["launches"]["cg_update2"] == 0,
+              f"sharded f64 solve: kernels of rank {r['rank']}: "
+              f"{r['launches']}")
+
+
+def sharded_full(ck, scene, unsharded_ms, device="cuda"):
+    """wiremesh-synthetic-231k, f32, 5 ALM iterations on 2 gloo ranks on the
+    one card (the main path of phase 13): quality, ms per trial beside
+    phase 5's unsharded figure, collectives and bytes per trial, each rank's
+    launches, and whether the ranks' replicated values are bit-equal.
+    Returns the ranks' results."""
+    from aa_admm_tpu_torch.apps.wire_mesh_opt import check_wiremesh_error
+    from aa_admm_tpu_torch.parallel import ensemble as ens
+    from aa_admm_tpu_torch.parallel import geometry as pgeo
+    sub, el, ref_v, ref_f = scene
+    n_it = 5
+    t0 = time.perf_counter()
+    ranks = ens.run_ranks(2, pgeo.wire_mesh_case,
+                          scene_dict(sub, el, ref_v, ref_f),
+                          dict(max_iter=n_it, dtype=np.float32, device=device),
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    out = ranks[0]["x"]
+    min_a, max_a = np.pi * 0.25, np.pi * 0.75
+    with contextlib.redirect_stdout(io.StringIO()):
+        e_b, a_b, _ = check_wiremesh_error(sub, sub.verts, el, min_a, max_a)
+        e_a, a_a, _ = check_wiremesh_error(sub, out, el, min_a, max_a)
+    for r in ranks:
+        st = r["stats"]
+        tr = st["trials"]
+        print(f"  rank {r['rank']} rows {r['rows']}: setup_ADMM "
+              f"{r['setup_s']:.2f} s, solve {st['solve_s']:.3f} s, "
+              f"{st['solve_s'] / tr * 1e3:.1f} ms/trial over {tr} trials "
+              f"({len(r['fv'])} accepted), {st['cg_iters']} CG iterations, "
+              f"{st['cp_refreshes']} refreshes, {st['collectives']} "
+              f"collectives ({st['collectives'] / tr:.1f}/trial, "
+              f"{(st['collectives'] - 1) / tr:.1f} without the gather), "
+              f"{st['comm_bytes'] / tr / 1e6:.2f} MB summed/trial, "
+              f"{st['comm_s'] / tr * 1e3:.1f} ms/trial inside them, "
+              f"launches {r['launches']}")
+        split = ericson_launch_split(st, r["rows"][1] - r["rows"][0])
+        check(sum(split.values()) == r["launches"]["ericson_idx"],
+              f"sharded full: rank {r['rank']} B1 launches "
+              f"{r['launches']['ericson_idx']} != {split}")
+    st = ranks[0]["stats"]
+    ms_trial = st["solve_s"] / st["trials"] * 1e3
+    ref_txt = (f"{unsharded_ms:.1f} ms/trial unsharded (phase 5)"
+               if unsharded_ms else "phase 5 not run")
+    bits = all(np.array_equal(r["fv"], ranks[0]["fv"])
+               and r["rejects"] == ranks[0]["rejects"]
+               and np.array_equal(r["x"], out) for r in ranks)
+    print(f"  2 ranks: {ms_trial:.1f} ms/trial against {ref_txt}; "
+          f"{wall:.1f} s with the ranks' start, scene hand-over and set-up; "
+          f"replicated values bit-equal across ranks: {bits}")
+    print(f"  edge err mean {e_b.mean():.4e} -> {e_a.mean():.4e}, max "
+          f"{e_b.max():.4e} -> {e_a.max():.4e}; angle err max "
+          f"{a_b.max():.4e} -> {a_a.max():.4e}")
+    print(f"  bench.py's wire-mesh bounds (100 iterations on MaleTorso; "
+          f"reported, not gated, beside {n_it} iterations here): max edge "
+          f"error {e_a.max():.4e} against "
+          f"{QUALITY_LOOSE * WIREMESH_EDGE_MAX:.4e}, max angle error "
+          f"{a_a.max():.4e} against {QUALITY_LOOSE * WIREMESH_ANGLE_MAX:.4e}")
+    check(np.isfinite(out).all() and out.shape == sub.verts.shape,
+          "sharded full: non-finite or misshapen solution")
+    check(all(np.isfinite(r["fv"]).all() and len(r["fv"]) > 0
+              for r in ranks), "sharded full: non-finite function values")
+    check(e_a.mean() < e_b.mean(), "sharded full: mean edge error did not fall")
+    check(bits, "sharded full: the ranks' replicated values differ")
+    for r in ranks:
+        check(all(r["launches"][k] > 0 for k in SHARD_PATH_KERNELS)
+              and r["launches"]["cg_update1"] == 0
+              and r["launches"]["cg_update2"] == 0,
+              f"sharded full: kernels of rank {r['rank']}: {r['launches']}")
+    return ranks
+
+
+def phase_sharded_geometry(ck, scene, unsharded_ms):
+    """The f64 dryrun on 2 ranks on the card, the f64 small-scene parity and
+    the full-width f32 main path; returns the full-width ranks' results."""
+    from aa_admm_tpu_torch.parallel.geometry import dryrun_geometry
+    t0 = time.perf_counter()
+    out = dryrun_geometry(2, timeout=180)
+    check(out["max_dx"] < 1e-9 and out["max_dfv_rel"] < 1e-8,
+          f"geometry dryrun: {out}")
+    print(f"  ({time.perf_counter() - t0:.1f} s with the ranks' start)")
+    t0 = time.perf_counter()
+    sharded_f64_small(ck)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    ranks = sharded_full(ck, scene, unsharded_ms)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    return ranks
+
+
 def main(argv):
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2057,7 +2299,7 @@ def main(argv):
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from aa_admm_tpu_torch.ops import cuda_kernels as ck
-    want = set(range(1, 13))
+    want = set(range(1, 14))
     if argv[:1] == ["--phases"] and len(argv) == 2:
         want = {1} | {int(a) for a in argv[1].split(",")}
     elif argv:
@@ -2092,6 +2334,7 @@ def main(argv):
         check_ericson(ck, dev, record, n_small)
         check_ericson_idx(ck, dev, record)
         check_cg(ck, dev, record, n_small)
+        check_cg_given(ck, dev, record)
         phase("3 kernels vs twins", t0)
 
     if 4 in want:
@@ -2101,9 +2344,10 @@ def main(argv):
         phase("4 f64 solves GPU vs CPU (subgroup cache; flat cache + candT)",
               t0)
 
+    full = None
     if 5 in want:
         t0 = time.perf_counter()
-        counts, solver, split = phase_full_solve(ck)
+        counts, solver, split, full = phase_full_solve(ck)
         phase("5 full-width f32 solve", t0)
     if 6 in want and 5 in want:
         t0 = time.perf_counter()
@@ -2144,7 +2388,17 @@ def main(argv):
         phase_ensembles(ck)
         phase("12 scene ensembles and element sharding", t0)
 
-    if want != set(range(1, 13)):
+    if 13 in want:
+        t0 = time.perf_counter()
+        if full is None:
+            full = full_scene()
+        shard_ranks = phase_sharded_geometry(
+            ck, full, solver.stats["solve_s"] / solver.stats["trials"] * 1e3
+            if 5 in want else None)
+        phase("13 geometry sharded over vertex rows and elements (2 gloo "
+              "ranks)", t0)
+
+    if want != set(range(1, 14)):
         print(f"  total {time.perf_counter() - T0:.1f} s; phases "
               f"{sorted(want)} only, so no result lines")
         return 3
@@ -2180,7 +2434,16 @@ def main(argv):
                        "aa_admm_tpu/ops/pallas_kernels.py:207"),
         "cg_update2": ("aa_admm_tpu_torch/csrc/cg_update.cu",
                        "aa_admm_tpu/ops/pallas_kernels.py:230"),
+        "cg_dot": ("aa_admm_tpu_torch/csrc/cg_update.cu",
+                   "aa_admm_tpu/ops/pallas_kernels.py:230"),
+        "cg_update1_given": ("aa_admm_tpu_torch/csrc/cg_update.cu",
+                             "aa_admm_tpu/ops/pallas_kernels.py:207"),
+        "cg_update2_given": ("aa_admm_tpu_torch/csrc/cg_update.cu",
+                             "aa_admm_tpu/ops/pallas_kernels.py:230"),
     }
+    # the given entries' launches: both ranks of phase 13's main path
+    for name in ("cg_dot", "cg_update1_given", "cg_update2_given"):
+        counts[name] = sum(r["launches"][name] for r in shard_ranks)
     kernels = []
     for name, (src, repl) in meta.items():
         r = record[name]
@@ -2188,7 +2451,8 @@ def main(argv):
                             replaces=repl, launches=counts[name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"], library_ms=None))
+                            bound_by=r["bound_by"],
+                            library_ms=r.get("library_ms")))
     print(f"  total {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -340,8 +340,14 @@ def test_twins_do_not_count_launches():
     ck.ericson_candidates_idx(t["x"], torch.zeros((5, 3, 3),
                                                   dtype=torch.float64),
                               torch.zeros((64, 2), dtype=torch.int64))
+    ck.cg_dot(t["p"], t["ap"])
+    ck.cg_update1_given(s, torch.from_numpy(rz), t["p"], t["ap"], t["x"],
+                        t["r"], s, s * 0)
+    ck.cg_update2_given(s, torch.from_numpy(rz), t["z"], t["p"], s, s * 0)
     assert ck.launch_counts() == {"ericson": 0, "ericson_idx": 0,
-                                  "cg_update1": 0, "cg_update2": 0}
+                                  "cg_update1": 0, "cg_update2": 0,
+                                  "cg_dot": 0, "cg_update1_given": 0,
+                                  "cg_update2_given": 0}
 
 
 @pytest.mark.cuda
