@@ -24,7 +24,10 @@ library with a plain C interface under ``aa_admm_tpu_torch/build/`` (named by
 the source's hash, so an edited source rebuilds) and loaded with ctypes.
 ``build_all()`` starts one ``nvcc`` per source, all at once. Every C entry
 point launches on the caller's stream, allocates nothing, does not
-synchronize, and returns ``cudaGetLastError()``.
+synchronize, and returns ``cudaGetLastError()``. The runtime launches on
+its current card, so each wrapper makes its tensors' card current for the
+launch (``_launch``): a ``cuda:1`` tensor runs on card 1 whichever card the
+caller has current.
 
 Launch counters (``ericson_launches`` for the plane entry,
 ``ericson_idx_launches`` for the indexed entry, ``cg_update1_launches``,
@@ -33,10 +36,10 @@ Launch counters (``ericson_launches`` for the plane entry,
 kernel, however many CUDA launches that call takes.
 
 Cached state, per process: B1's padded copy of each triangle table (a few
-tables, rebuilt when the table changes in place) and B2's scratch (its
-partial sums and barrier counters, one set per device, dtype, c and grid
-size; calls that share a set must be ordered on one stream, as the solver's
-are).
+tables, rebuilt when the table changes in place; made on the table's card)
+and B2's grid limit and scratch (its partial sums and barrier counters, one
+set per card, dtype, c and grid size; calls that share a set must be
+ordered on one stream, as the solver's are).
 """
 
 from __future__ import annotations
@@ -103,8 +106,8 @@ CG_MAX_COLS = 4
 # 4-row chunks of cg_update.cu), no more than the card holds at once.
 CG1_THREADS = 256
 CG1_ROWS = 4
-_CG1_MAX_BLOCKS: dict = {}   # (device index, dtype, c) -> blocks
-_CG1_SCRATCH: dict = {}      # (device index, dtype, c, blocks) -> tensors
+_CG1_MAX_BLOCKS: dict = {}   # (card index, dtype, c) -> blocks
+_CG1_SCRATCH: dict = {}      # (card index, dtype, c, blocks) -> tensors
 
 
 def reset_launch_counts():
@@ -220,8 +223,13 @@ def _on_cuda(tensors, entry: str) -> bool:
     return True
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _launch(entry: str, dtype, dev, *args):
+    """Calls C entry point `entry` with args and dev's current stream, with
+    dev's card current (the runtime launches on its current card)."""
+    with torch.cuda.device(dev):
+        _check(_fn(entry, dtype)(*args,
+                                 torch.cuda.current_stream(dev).cuda_stream),
+               entry)
 
 
 # ---------------------------------------------------------------------------
@@ -275,10 +283,9 @@ def ericson_candidates_T(pT, candT):
     dv = torch.empty((1, Q), dtype=pT.dtype, device=pT.device)
     if Q == 0:
         return qv, dv
-    f = _fn("ericson_candidates", pT.dtype)
-    _check(f(pT.data_ptr(), candT.data_ptr(), qv.data_ptr(), dv.data_ptr(),
-             K, ericson_lanes(Q, K), Q, _stream(pT.device)),
-           "ericson_candidates")
+    _launch("ericson_candidates", pT.dtype, pT.device, pT.data_ptr(),
+            candT.data_ptr(), qv.data_ptr(), dv.data_ptr(), K,
+            ericson_lanes(Q, K), Q)
     ericson_launches += 1
     return qv, dv
 
@@ -342,10 +349,9 @@ def ericson_candidates_idx(p, tris, idx, sub: int = 1):
     if Q == 0:
         return q, d
     tab = _row_table(tris)
-    f = _fn("ericson_candidates_idx", p.dtype)
-    _check(f(p.data_ptr(), tab.data_ptr(), idx.data_ptr(), q.data_ptr(),
-             d.data_ptr(), G, sub, ericson_lanes(Q, G * sub), Q, T,
-             _stream(p.device)), "ericson_candidates_idx")
+    _launch("ericson_candidates_idx", p.dtype, p.device, p.data_ptr(),
+            tab.data_ptr(), idx.data_ptr(), q.data_ptr(), d.data_ptr(), G,
+            sub, ericson_lanes(Q, G * sub), Q, T)
     ericson_idx_launches += 1
     return q, d
 
@@ -410,8 +416,10 @@ def cg1_blocks(n: int, c: int, dtype, device) -> int:
     most = _CG1_MAX_BLOCKS.get(key)
     if most is None:
         out = ctypes.c_int(0)
-        _check(_fn("cg_update1_max_blocks", dtype)(
-            c, device.index, ctypes.addressof(out)), "cg_update1_max_blocks")
+        with torch.cuda.device(device):       # the occupancy API's card
+            _check(_fn("cg_update1_max_blocks", dtype)(
+                c, device.index, ctypes.addressof(out)),
+                "cg_update1_max_blocks")
         most = _CG1_MAX_BLOCKS[key] = out.value
     return max(1, min(most, -(-n // (CG1_ROWS * CG1_THREADS))))
 
@@ -449,11 +457,10 @@ def cg_update1(rz, p, ap, x, r, rr_prev, thresh):
     nb = cg1_blocks(n, c, x.dtype, x.device)
     partials, counters = _cg1_scratch(x.dtype, x.device, c, nb)
     rr = torch.empty((c,), dtype=x.dtype, device=x.device)
-    f = _fn("cg_update1", x.dtype)
-    _check(f(rz.data_ptr(), rr_prev.data_ptr(), thresh.data_ptr(),
-             p.data_ptr(), ap.data_ptr(), x.data_ptr(), r.data_ptr(),
-             rr.data_ptr(), partials.data_ptr(), counters.data_ptr(), n, c,
-             nb, _stream(x.device)), "cg_update1")
+    _launch("cg_update1", x.dtype, x.device, rz.data_ptr(),
+            rr_prev.data_ptr(), thresh.data_ptr(), p.data_ptr(),
+            ap.data_ptr(), x.data_ptr(), r.data_ptr(), rr.data_ptr(),
+            partials.data_ptr(), counters.data_ptr(), n, c, nb)
     cg_update1_launches += 1
     return rr
 
@@ -470,10 +477,10 @@ def cg_update2(rz_old, r, z, p, rr_prev, thresh):
     nb = cg_blocks(n)
     partials = torch.empty((nb, c), dtype=p.dtype, device=p.device)
     rz = torch.empty((c,), dtype=p.dtype, device=p.device)
-    f = _fn("cg_update2", p.dtype)
-    _check(f(rz_old.data_ptr(), rr_prev.data_ptr(), thresh.data_ptr(),
-             r.data_ptr(), z.data_ptr(), p.data_ptr(), rz.data_ptr(),
-             partials.data_ptr(), n, c, nb, _stream(p.device)), "cg_update2")
+    _launch("cg_update2", p.dtype, p.device, rz_old.data_ptr(),
+            rr_prev.data_ptr(), thresh.data_ptr(), r.data_ptr(),
+            z.data_ptr(), p.data_ptr(), rz.data_ptr(), partials.data_ptr(),
+            n, c, nb)
     cg_update2_launches += 1
     return rz
 
@@ -523,9 +530,8 @@ def cg_dot(a, b):
     nb = cg_blocks(n)
     partials = torch.empty((nb, c), dtype=a.dtype, device=a.device)
     out = torch.empty((c,), dtype=a.dtype, device=a.device)
-    _check(_fn("cg_dot", a.dtype)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                  partials.data_ptr(), n, c, nb,
-                                  _stream(a.device)), "cg_dot")
+    _launch("cg_dot", a.dtype, a.device, a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), partials.data_ptr(), n, c, nb)
     cg_dot_launches += 1
     return out
 
@@ -545,10 +551,10 @@ def cg_update1_given(pap, rz, p, ap, x, r, rr_prev, thresh):
     nb = cg_blocks(n)
     partials = torch.empty((nb, c), dtype=x.dtype, device=x.device)
     rr = torch.empty((c,), dtype=x.dtype, device=x.device)
-    _check(_fn("cg_update1_given", x.dtype)(
-        pap.data_ptr(), rz.data_ptr(), rr_prev.data_ptr(), thresh.data_ptr(),
-        p.data_ptr(), ap.data_ptr(), x.data_ptr(), r.data_ptr(), rr.data_ptr(),
-        partials.data_ptr(), n, c, nb, _stream(x.device)), "cg_update1_given")
+    _launch("cg_update1_given", x.dtype, x.device, pap.data_ptr(),
+            rz.data_ptr(), rr_prev.data_ptr(), thresh.data_ptr(),
+            p.data_ptr(), ap.data_ptr(), x.data_ptr(), r.data_ptr(),
+            rr.data_ptr(), partials.data_ptr(), n, c, nb)
     cg_update1_given_launches += 1
     return rr
 
@@ -561,8 +567,7 @@ def cg_update2_given(rz, rz_old, z, p, rr_prev, thresh):
     if not _on_cuda([rz, rz_old, z, p, rr_prev, thresh], "cg_update2_given"):
         return cg_update2_given_plain(rz, rz_old, z, p, rr_prev, thresh)
     _cg_cols("cg_update2_given", c)
-    _check(_fn("cg_update2_given", p.dtype)(
-        rz.data_ptr(), rz_old.data_ptr(), rr_prev.data_ptr(),
-        thresh.data_ptr(), z.data_ptr(), p.data_ptr(), n, c, cg_blocks(n),
-        _stream(p.device)), "cg_update2_given")
+    _launch("cg_update2_given", p.dtype, p.device, rz.data_ptr(),
+            rz_old.data_ptr(), rr_prev.data_ptr(), thresh.data_ptr(),
+            z.data_ptr(), p.data_ptr(), n, c, cg_blocks(n))
     cg_update2_given_launches += 1

@@ -28,10 +28,16 @@ The JAX package pins the element arrays with in-loop sharding constraints
 and checks the lowered module for them. Here the collectives are explicit
 calls, and the system's ``ElemComm`` counts them.
 
-``run_ranks`` spawns the ranks of one process group (gloo over a FileStore
-in a temporary directory, no TCP port, one torch thread each) with a
-timeout; ``dryrun(world)`` runs both orders sharded on it, with the float64
-parity of the sharded and unsharded steps.
+``run_ranks`` spawns the ranks of one process group (over a FileStore in a
+temporary directory, no TCP port, one torch thread each) with a timeout.
+Where each rank runs and which backend joins them is ``rank_placement``'s
+rule: on CUDA with no more ranks than cards, rank r holds card r and the
+ranks sum through NCCL on the cards (the JAX package's meshes span chips
+alike); with more ranks than cards they share the cards round-robin and sum
+through gloo (NCCL takes one rank per card); on the CPU, gloo.
+``dryrun(world)`` runs both orders sharded on it, with the float64 parity
+of the sharded and unsharded steps, and the sharded geometry solve's
+parity (``parallel/geometry.py``).
 """
 
 from __future__ import annotations
@@ -207,26 +213,59 @@ def tiny_states(solver: PhysicsSolver, S: int, spread: float = 0.1):
 # Element-axis sharding
 # ---------------------------------------------------------------------------
 
+def rank_placement(world: int, device_type: str = "cuda", n_cards=None):
+    """(backend, [device of each rank]) of `world` ranks: on the CPU gloo,
+    every rank on the CPU; on CUDA with world <= n_cards NCCL, rank r on
+    cuda:r; with more ranks than cards gloo, rank r on cuda:(r % n_cards)
+    (ranks share the cards). n_cards defaults to the cards this process
+    sees."""
+    if device_type == "cpu":
+        return "gloo", [torch.device("cpu")] * world
+    if device_type != "cuda":
+        raise ValueError(f"no rank placement for device type {device_type!r}")
+    if n_cards is None:
+        n_cards = torch.cuda.device_count()
+    if n_cards < 1:
+        raise ValueError("rank_placement: CUDA ranks need at least one card")
+    devices = [torch.device("cuda", r % n_cards) for r in range(world)]
+    return ("nccl" if world <= n_cards else "gloo"), devices
+
+
+def mesh_device_type() -> str:
+    """The DeviceMesh device type of the initialized process group: "cuda"
+    under NCCL, "cpu" under gloo (whose CUDA ranks share the cards)."""
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
 def make_mesh(world: int, prefer_dp: int = 2):
     """A (dp, elem) DeviceMesh over the `world` ranks of the initialized
     process group (JAX ensemble.py:29-38): dp = prefer_dp when it divides
     world (and world > 1), else 1."""
     from torch.distributed.device_mesh import init_device_mesh
     dp = prefer_dp if world % prefer_dp == 0 and world > 1 else 1
-    return init_device_mesh("cpu", (dp, world // dp),
+    return init_device_mesh(mesh_device_type(), (dp, world // dp),
                             mesh_dim_names=("dp", "elem"))
 
 
 class ElemComm:
-    """Sums over the element group of a sharded system; ``count`` is the
-    number of collectives issued, ``nbytes`` the bytes they summed (each
-    tensor's size once), ``seconds`` the host's wall time inside them (for
-    CUDA tensors gloo first waits for the device to produce them)."""
+    """Sums over the element group of a sharded system whose tensors live on
+    `device` (the rank's); a tensor on another device raises. ``count`` is
+    the number of collectives issued, ``nbytes`` the bytes they summed (each
+    tensor's size once), ``seconds`` the host's wall time inside the calls:
+    under gloo the whole sum (for CUDA tensors gloo first waits for the
+    device to produce them), under NCCL only the enqueue, the sum running
+    on the card after it (read its device time from torch.profiler's
+    ``nccl`` kernels)."""
 
-    def __init__(self, group):
-        self.group, self.count, self.nbytes, self.seconds = group, 0, 0, 0.0
+    def __init__(self, group, device):
+        self.group, self.device = group, torch.device(device)
+        self.count, self.nbytes, self.seconds = 0, 0, 0.0
 
     def all_reduce(self, t):
+        if t.device != self.device:
+            raise RuntimeError(f"ElemComm: a {tuple(t.shape)} tensor on "
+                               f"{t.device}, the rank's tensors are on "
+                               f"{self.device}")
         t0 = time.perf_counter()
         t = t.contiguous()
         dist.all_reduce(t, group=self.group)
@@ -264,17 +303,22 @@ def shard_system(system: PhysicsSystem, mesh) -> PhysicsSystem:
             **{k: getattr(b, k)[lo:hi] for k in _elem_fields(b)})
     return dataclasses.replace(
         system, batches=tuple(part(b) for b in system.batches),
-        comm=ElemComm(mesh.get_group("elem")))
+        comm=ElemComm(mesh.get_group("elem"), system.masses.device))
 
 
-def _rank_main(rank, world, store_path, results, fn, args):
+def _rank_main(rank, world, store_path, results, backend, device, fn, args):
     try:
         torch.set_num_threads(1)
-        dist.init_process_group("gloo", store=dist.FileStore(store_path,
-                                                             world),
-                                rank=rank, world_size=world)
+        kw = {}
+        if device.type == "cuda":
+            torch.cuda.set_device(device)     # before any CUDA work
+            if backend == "nccl":
+                kw["device_id"] = device      # the communicator's card
+        dist.init_process_group(backend, store=dist.FileStore(store_path,
+                                                              world),
+                                rank=rank, world_size=world, **kw)
         try:
-            out = fn(rank, world, *args)
+            out = fn(rank, world, device, *args)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
@@ -282,19 +326,47 @@ def _rank_main(rank, world, store_path, results, fn, args):
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_ranks(world: int, fn, *args, timeout: float = 600.0):
-    """fn(rank, world, *args) (a module-level function) in `world` spawned
-    processes joined by one gloo process group over a FileStore in a
-    temporary directory, one torch thread each. Returns their results in
-    rank order. Raises when a rank raises or dies, or when the ranks have
-    not all finished within `timeout` seconds; every rank still running is
-    then killed."""
+def rank_info(device) -> dict:
+    """This rank's placement as its result reports it: the backend of the
+    initialized group, its device and (on CUDA) the current card."""
+    return dict(backend=dist.get_backend(), device=str(device),
+                current_device=(torch.cuda.current_device()
+                                if device.type == "cuda" else None))
+
+
+def check_placement(infos, world, device_type="cuda", n_cards=None):
+    """Raises unless every rank's rank_info is rank_placement's: its
+    backend, its device and, on CUDA, that card current."""
+    backend, devices = rank_placement(world, device_type, n_cards)
+    for r, (info, dev) in enumerate(zip(infos, devices)):
+        if (info["backend"] != backend or info["device"] != str(dev)
+                or info["current_device"] != dev.index):
+            raise RuntimeError(f"rank {r} runs as {info}, not on {dev} "
+                               f"under {backend}")
+
+
+def run_ranks(world: int, fn, *args, device=None, n_cards=None,
+              timeout: float = 600.0):
+    """fn(rank, world, rank_device, *args) (a module-level function) in
+    `world` spawned processes joined by one process group over a FileStore
+    in a temporary directory, one torch thread each. `device` (default the
+    card) names the device type; rank_placement(world, its type, n_cards)
+    gives each rank its device (current on CUDA before the group starts)
+    and the group's backend. Returns the results in rank order. Raises
+    when a rank raises or dies, or when the ranks have not all finished
+    within `timeout` seconds; every rank still running is then killed."""
+    dev_type = resolve_device(device).type
+    if dev_type == "cuda" and n_cards is not None and \
+            not 1 <= n_cards <= torch.cuda.device_count():
+        raise ValueError(f"run_ranks: n_cards={n_cards}, but "
+                         f"{torch.cuda.device_count()} cards are visible")
+    backend, devices = rank_placement(world, dev_type, n_cards)
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="aaadmm_ranks_")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, world, os.path.join(tmp, "store"), results,
-                               fn, args))
+                               backend, devices[r], fn, args))
              for r in range(world)]
     out = {}
     deadline = time.monotonic() + timeout
@@ -328,20 +400,20 @@ def run_ranks(world: int, fn, *args, timeout: float = 600.0):
     return [out[r] for r in range(world)]
 
 
-def sharded_case(rank, world, spec: dict, out_dir: str):
-    """One rank of a sharded ensemble step (run through run_ranks): the
-    float64 tiny scene (`spec`: order, iters, m, device (default the card);
-    solver "cg" forces the CG path) on a (dp, elem) mesh of prefer_dp,
-    `scenes` replicas (tiny_states) split over dp, each dp group stepping
-    its own as one tiled, element-sharded ensemble. Writes
+def sharded_case(rank, world, device, spec: dict, out_dir: str):
+    """One rank of a sharded ensemble step (run through run_ranks, which
+    hands the rank its device): the float64 tiny scene (`spec`: order,
+    iters, m; solver "cg" forces the CG path) on a (dp, elem) mesh of
+    prefer_dp, `scenes` replicas (tiny_states) split over dp, each dp group
+    stepping its own as one tiled, element-sharded ensemble. Writes
     out_dir/rank{rank}.npz (the group's x, v and trace, its scene indices,
     its mesh coordinates, the collectives, host reads and CG iterations of
-    the step) and returns the small fields."""
+    the step) and returns the small fields and its rank_info."""
     order = spec["order"]
     mesh = make_mesh(world, spec.get("prefer_dp", 1))
     dp, dpr = mesh["dp"].size(), mesh["dp"].get_local_rank()
     solver, s = build_tiny_scene(order, "float64", spec.get("iters", 8),
-                                 spec.get("m", 3), device=spec.get("device"))
+                                 spec.get("m", 3), device=device)
     if spec.get("solver", "auto") != "auto":
         s.linear_solver = spec["solver"]
         solver.initialize(s)
@@ -365,7 +437,7 @@ def sharded_case(rank, world, spec: dict, out_dir: str):
              v=v.cpu().numpy(), prim=tr.prim.cpu().numpy(),
              comb=tr.comb.cpu().numpy(), reject=tr.reject.cpu().numpy(),
              **small)
-    return small
+    return dict(small, **rank_info(device))
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +450,9 @@ def _finite(tr, x):
 
 
 def _dryrun_rank(rank, world, device):
-    """One rank of dryrun(): returns its summary of both orders."""
+    """One rank of dryrun(): its summary of both orders, of the geometry
+    solve (parallel/geometry.py's dryrun rank) and its rank_info."""
+    from .geometry import _dryrun_rank as geometry_rank
     mesh = make_mesh(world)
     dp, dpr = mesh["dp"].size(), mesh["dp"].get_local_rank()
     solver, _ = build_tiny_scene("xzu", device=device)
@@ -401,7 +475,8 @@ def _dryrun_rank(rank, world, device):
         for path in ("auto", "cg"):
             key = order if path == "auto" else f"{order}_cg"
             summary[key] = _parity(order, path, mesh1, device)
-    return summary
+    return dict(orders=summary, geometry=geometry_rank(rank, world, device),
+                **rank_info(device))
 
 
 def _parity(order, path, mesh, device):
@@ -440,30 +515,43 @@ def _parity(order, path, mesh, device):
             "collectives": n_coll}
 
 
-def dryrun(world: int, device=None, timeout: float = 600.0) -> dict:
+def dryrun(world: int, device=None, n_cards=None,
+           timeout: float = 600.0) -> dict:
     """One accelerated step of both orders on `world` spawned ranks (JAX
-    ensemble.py:145-270): xzu as a dp x elem sharded ensemble of two scenes
+    ensemble.py:145-289): xzu as a dp x elem sharded ensemble of two scenes
     per dp group, zxu (with its collision batch) with every rank on the
     element axis, and the float64 sharded-against-unsharded parity of both
     (max|dx| < 1e-10, max|dprim| < 1e-8) with each one's iterations/s and
     collectives per step, on the scene's dense global step (keys "xzu",
-    "zxu") and on the forced CG path ("xzu_cg", "zxu_cg"). The ranks run on
-    the card (all on one) unless `device` says otherwise. Raises if a rank
-    fails or times out; prints and returns the summary (the JAX dryrun's
-    keys, `collectives` in place of `all_reduces`)."""
-    per_rank = run_ranks(world, _dryrun_rank, resolve_device(device).type,
-                         timeout=timeout)
-    summary = per_rank[0]
+    "zxu") and on the forced CG path ("xzu_cg", "zxu_cg"); then the
+    geometry dryrun's solve on the same ranks (key "geometry": max|dx| <
+    1e-9, max|dfv/fv| < 1e-8; parallel/geometry.py). The ranks run on the
+    cards by rank_placement (n_cards as there) unless `device` says
+    otherwise. Raises if a rank fails, times out or is not where the rule
+    puts it; prints and returns the summary (the JAX dryrun's keys,
+    `collectives` in place of `all_reduces`); its JSON line adds the
+    backend and the ranks' devices."""
+    from .geometry import _geometry_summary
+    dev_type = resolve_device(device).type
+    per_rank = run_ranks(world, _dryrun_rank, device=dev_type,
+                         n_cards=n_cards, timeout=timeout)
+    check_placement(per_rank, world, dev_type, n_cards)
+    summary = per_rank[0]["orders"]
     for order in summary:
         for key in ("max_dx", "max_dprim"):
-            summary[order][key] = max(r[order][key] for r in per_rank)
+            summary[order][key] = max(r["orders"][order][key]
+                                      for r in per_rank)
         o = summary[order]
         print(f"dryrun[{order}]: sharded-vs-unsharded max|dx|="
               f"{o['max_dx']:.3e} max|dprim|={o['max_dprim']:.3e}; iters/s "
               f"1 rank={o['iters_per_s_ref']} {world} ranks="
               f"{o['iters_per_s_sharded']}; collectives per step="
               f"{o['collectives']}", flush=True)
+    summary["geometry"] = _geometry_summary([r["geometry"] for r in per_rank],
+                                            world)
     print(json.dumps({"dryrun": "ok", "n_devices": world,
-                      "parity_certified": True, "orders": summary}),
+                      "parity_certified": True, "orders": summary,
+                      "backend": per_rank[0]["backend"],
+                      "devices": [r["device"] for r in per_rank]}),
           flush=True)
     return summary

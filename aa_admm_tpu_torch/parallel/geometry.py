@@ -20,9 +20,10 @@ ranks is then, as in the JAX package:
   stacked {rz, rr} per CG iteration, ``solver/linear.py``), plus the coarse
   restriction's partials (``solver/multigrid.py``);
 * the gathers of neighbour vertices: the full vector assembled by a sum of
-  zero-filled buffers that hold each rank's rows (gloo takes only
-  ``all_reduce`` and ``broadcast`` on CUDA tensors; a halo table would move
-  less), once per CG matvec and twice per trial;
+  zero-filled buffers that hold each rank's rows (exact: the other ranks
+  add zeros; gloo takes only ``all_reduce`` and ``broadcast`` on CUDA
+  tensors, and an ``all_gather`` or a halo table would move less), once
+  per CG matvec and twice per trial;
 * the x-update's scatter, the residual, the AA inner products (then the
   replicated m x m solve), the soft energies and the closest-point cache's
   refresh test: sums, so every rank takes the same branch.
@@ -32,9 +33,14 @@ On CUDA the CG's vector half runs in B2 and B3 through their given entries
 The JAX package's BSR operator is not ported; the sharded solve runs the ELL
 CG path (or the replicated dense inverse below 12,000 vertices).
 
+The ranks are placed by ``ensemble.rank_placement``: one card each under
+NCCL, whose sums run on the cards, when there are no more ranks than
+cards; else gloo, the ranks sharing the cards (every sum through the
+host). On CUDA the tensors stay on the rank's card either way.
+
 ``dryrun_geometry(world)`` runs the JAX dryrun's scene sharded against
-unsharded on spawned gloo ranks (``ensemble.run_ranks``);
-``wire_mesh_case`` is one rank of a sharded ``optimize_mesh``.
+unsharded on spawned ranks (``ensemble.run_ranks``); ``wire_mesh_case`` is
+one rank of a sharded ``optimize_mesh``.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ import numpy as np
 from .. import resolve_device
 from ..ops.constraints import AngleBatch, ClosenessBatch, EdgeLengthBatch
 from ..solver.geometry import ALMGeometrySolver, GeometrySystem, RowShard
-from .ensemble import ElemComm, _split, run_ranks
+from .ensemble import (ElemComm, _split, check_placement, mesh_device_type,
+                       rank_info, run_ranks)
 
 
 def make_vert_mesh(world: int):
@@ -57,7 +64,8 @@ def make_vert_mesh(world: int):
     initialized process group (JAX geometry.py:28-35): rows and elements
     share the axis."""
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh("cpu", (world,), mesh_dim_names=("elem",))
+    return init_device_mesh(mesh_device_type(), (world,),
+                            mesh_dim_names=("elem",))
 
 
 def _elem_fields(b):
@@ -107,7 +115,8 @@ def shard_geometry_system(system: GeometrySystem, mesh) -> GeometrySystem:
               precond_diag=rows(system.precond_diag),
               rhs_fixed=rows(system.rhs_fixed), x0=rows(system.x0),
               Ax0=rows(system.Ax0),
-              shard=RowShard(lo, hi, ElemComm(mesh.get_group("elem"))))
+              shard=RowShard(lo, hi, ElemComm(mesh.get_group("elem"),
+                                              system.rhs_fixed.device)))
     if system.ell is not None:
         kw["ell"] = dataclasses.replace(system.ell, idx=rows(system.ell.idx),
                                         coef=rows(system.ell.coef))
@@ -169,7 +178,8 @@ def _dryrun_solve(solver, verts):
 
 
 def _dryrun_rank(rank, world, device):
-    """One rank of dryrun_geometry: the scene unsharded, then sharded."""
+    """One rank of dryrun_geometry: the scene unsharded, then sharded; the
+    parity, the sharded solve's counts and the rank's rank_info."""
     solver1, verts = _dryrun_scene(device)
     x1, fv1 = _dryrun_solve(solver1, verts)
     solver_n, _ = _dryrun_scene(device)
@@ -185,19 +195,12 @@ def _dryrun_rank(rank, world, device):
     return {"max_dx": float(np.max(np.abs(xn - x1))),
             "max_dfv_rel": float(np.max(np.abs(fvn / fv1 - 1.0))),
             "collectives": st["collectives"], "trials": st["trials"],
-            "cg_iters": st["cg_iters"]}
+            "cg_iters": st["cg_iters"], **rank_info(device)}
 
 
-def dryrun_geometry(world: int, device=None, timeout: float = 600.0) -> dict:
-    """The JAX geometry dryrun (geometry.py:132-231) on `world` spawned
-    gloo ranks: its 15 x 15 scene solved sharded over the ranks against
-    the same solve unsharded, on the ELL CG path, float64. Raises beyond
-    max|dx| 1e-9 or max|dfv/fv| 1e-8, or when a rank fails or times out;
-    prints the JAX dryrun's line and returns {max_dx, max_dfv_rel,
-    collectives} (collectives: the sharded solve's, per rank). The ranks
-    run on the card (all on one) unless `device` says otherwise."""
-    per_rank = run_ranks(world, _dryrun_rank, resolve_device(device).type,
-                         timeout=timeout)
+def _geometry_summary(per_rank, world: int) -> dict:
+    """The ranks' dryrun results reduced: raises beyond max|dx| 1e-9 or
+    max|dfv/fv| 1e-8; prints the JAX dryrun's line."""
     dx = max(r["max_dx"] for r in per_rank)
     dfv = max(r["max_dfv_rel"] for r in per_rank)
     if not (dx < 1e-9 and dfv < 1e-8):
@@ -211,17 +214,37 @@ def dryrun_geometry(world: int, device=None, timeout: float = 600.0) -> dict:
     return {"max_dx": dx, "max_dfv_rel": dfv, "collectives": coll}
 
 
+def dryrun_geometry(world: int, device=None, n_cards=None,
+                    timeout: float = 600.0) -> dict:
+    """The JAX geometry dryrun (geometry.py:132-231) on `world` spawned
+    ranks: its 15 x 15 scene solved sharded over the ranks against the same
+    solve unsharded, on the ELL CG path, float64. The ranks run on the
+    cards by ensemble.rank_placement (n_cards as there) unless `device`
+    says otherwise. Raises beyond max|dx| 1e-9 or max|dfv/fv| 1e-8, or
+    when a rank fails, times out or is not where the rule puts it; prints
+    the JAX dryrun's line and returns {max_dx, max_dfv_rel, collectives}
+    (collectives: the sharded solve's, per rank)."""
+    dev_type = resolve_device(device).type
+    per_rank = run_ranks(world, _dryrun_rank, device=dev_type,
+                         n_cards=n_cards, timeout=timeout)
+    check_placement(per_rank, world, dev_type, n_cards)
+    return _geometry_summary(per_rank, world)
+
+
 # ---------------------------------------------------------------------------
 # One rank of a sharded wire-mesh solve
 # ---------------------------------------------------------------------------
 
-def wire_mesh_case(rank, world, scene: dict, opts: dict):
+def wire_mesh_case(rank, world, device, scene: dict, opts: dict):
     """One rank of ``optimize_mesh`` sharded over `world` ranks (run through
-    run_ranks). scene: verts, faces (lists), ref_v, ref_f, edge_length;
-    opts: max_iter, anderson_m, dtype, device (default the card),
-    dense_threshold (optimize_mesh's). Returns the rank's function
-    values, rejects, gathered solution, stats (collectives and bytes
-    included), kernel launch counts and solve seconds."""
+    run_ranks, which hands the rank its device). scene: verts, faces
+    (lists), ref_v, ref_f, edge_length; opts: max_iter, anderson_m, dtype,
+    dense_threshold (optimize_mesh's), repeat_iters (default 0: after the
+    solve, that many accepted iterations again from the start, timed and
+    then under torch.profiler; see _repeat_trials). Returns the rank's
+    function values, rejects, gathered solution, stats (collectives and
+    bytes included), kernel launch counts, solve seconds, rank_info and
+    the repeat's figures."""
     from ..apps.wire_mesh_opt import optimize_mesh
     from ..core.polymesh import PolyMesh
     from ..ops import cuda_kernels as ck
@@ -234,15 +257,58 @@ def wire_mesh_case(rank, world, scene: dict, opts: dict):
         scene["ref_v"], scene["ref_f"], max_iter=opts["max_iter"],
         anderson_m=opts.get("anderson_m", 5),
         edge_length=scene["edge_length"], dtype=opts.get("dtype", np.float64),
-        result_dir=result_dir, device=opts.get("device"),
+        result_dir=result_dir, device=device,
         dense_threshold=opts.get("dense_threshold"),
         device_mesh=mesh)
     launches = ck.launch_counts()
     wall = time.perf_counter() - t0
     shutil.rmtree(result_dir, ignore_errors=True)
     sh = solver.system.shard
-    return dict(rank=rank, rows=None if sh is None else (sh.lo, sh.hi),
-                fv=np.asarray(solver.function_values),
-                rejects=list(solver.anderson_reset),
-                x=solver.get_solution(), stats=dict(solver.stats),
-                launches=launches, setup_s=solver.setup_s, wall_s=wall)
+    out = dict(rank=rank, rows=None if sh is None else (sh.lo, sh.hi),
+               fv=np.asarray(solver.function_values),
+               rejects=list(solver.anderson_reset),
+               x=solver.get_solution(), stats=dict(solver.stats),
+               launches=launches, setup_s=solver.setup_s, wall_s=wall,
+               **rank_info(device))
+    if opts.get("repeat_iters"):
+        out["repeat"] = _repeat_trials(solver.system, opts["repeat_iters"])
+    return out
+
+
+def _repeat_trials(system, n_iter: int) -> dict:
+    """The first `n_iter` accepted iterations of a solved system's loop
+    again from its start, twice: timed (the kernels built, the collectives'
+    connections made), then under torch.profiler. Returns the trials, the
+    ms of the timed run and of the profiled one, and the profiled run's
+    device ms of every kernel and of the nccl kernels (whose time includes
+    their wait for the other ranks)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ..solver.geometry import _alm_init_state, solve_alm_chunk
+    dev = system.rhs_fixed.device
+
+    def run():
+        state = _alm_init_state(system, system.x0)
+        state["limit"] = min(n_iter, system.max_iter)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state = solve_alm_chunk(system, state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return state["trial"], (time.perf_counter() - t0) * 1e3
+    trials, ms = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, prof_ms = run()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    nccl = [e for e in events if "nccl" in e.key.lower()]
+    return dict(trials=trials, ms=ms, profiled_ms=prof_ms,
+                device_ms=sum(dev_us(e) for e in events) / 1e3,
+                nccl_ms=sum(dev_us(e) for e in nccl) / 1e3,
+                nccl_kernels=sum(e.count for e in nccl))

@@ -84,13 +84,15 @@ non-zero before the final result line):
      steps against single-scene steps (both orders, dense and CG paths,
      replicas whose velocities differ; rtol 1e-10, atol 1e-12, equal
      resets); the sharding dryrun on two ranks on the one card through
-     gloo, each holding half of every element batch: both orders, on the
-     dense and the CG global step, against the unsharded float64 step
-     (max|dx| < 1e-10, max|dprim| < 1e-8), with iterations/s and
-     collectives per step;
+     gloo (n_cards=1 on any machine), each holding half of every element
+     batch: both orders, on the dense and the CG global step, against the
+     unsharded float64 step (max|dx| < 1e-10, max|dprim| < 1e-8), with
+     iterations/s and collectives per step, and the geometry dryrun's
+     solve on the same ranks;
  13. the geometry solve sharded over vertex rows and constraint elements
      (aa_admm_tpu_torch/parallel/geometry.py), two gloo ranks on the one
-     card: the float64 dryrun (max|dx| < 1e-9, max|dfv/fv| < 1e-8); phase
+     card (n_cards=1 on any machine): the float64 dryrun (max|dx| < 1e-9,
+     max|dfv/fv| < 1e-8); phase
      4's small scene in float64 on the CG path with the subgroup cache
      against the unsharded solve on the card (rtol 1e-8, equal rejects and
      refreshes); and the main path of this phase, wiremesh-synthetic-231k
@@ -98,7 +100,23 @@ non-zero before the final result line):
      over the two ranks: the mean edge error must fall, bench.py's bounds
      beside the errors, ms per trial beside phase 5's, collectives and
      bytes per trial, each rank's launches (B1 and the given entries; the
-     unsharded B2 and B3 must not launch) and the ranks' bit-equality.
+     unsharded B2 and B3 must not launch) and the ranks' bit-equality;
+     then each rank runs its first two iterations again, timed and under
+     torch.profiler (device ms per trial);
+ 14. the sharded paths over cards, one rank per card under NCCL, on
+     world = min(4, cards) cards when the machine has two or more (with
+     one card it prints that it needs two and does nothing else): the
+     physics dryrun (xzu as a dp x elem ensemble, zxu, the dense and the
+     CG global step, f64, max|dx| < 1e-10, max|dprim| < 1e-8) and, on the
+     same ranks, the geometry dryrun (max|dx| < 1e-9, max|dfv/fv| <
+     1e-8); phase 4's small f64 scene on the cards against the unsharded
+     card solve (as in phase 13); and wiremesh-synthetic-231k, f32, 5 ALM
+     iterations on the cards: ms per trial beside phases 5 and 13 (and of
+     the first two iterations repeated), collectives, MB summed, host ms
+     inside the calls and the nccl kernels' device ms per trial
+     (torch.profiler), each rank's device, current card, backend and
+     launches; the ranks must be bit-equal, the mean edge error must fall
+     and each rank must hold its own card under NCCL.
 
 ``--phases 1,2,7`` runs only the listed phases (phase 1 always runs); the
 result lines need every phase.
@@ -2126,15 +2144,12 @@ def phase_ensembles(ck):
             for path in ("dense", "cg"):
                 tiny_parity(order, path)
         print(f"  ({time.perf_counter() - t0:.1f} s)")
-        # Two ranks on the one card through gloo (NCCL refuses two ranks
-        # on one GPU), each with half of every element batch; both orders
-        # on the dense and the CG global step.
+        # Two ranks on the one card through gloo (NCCL takes one rank per
+        # card; n_cards=1 keeps this on one card on any machine), each with
+        # half of every element batch; both orders on the dense and the CG
+        # global step, then the geometry dryrun's solve.
         t0 = time.perf_counter()
-        summary = dryrun(2, timeout=300)
-        for key in ("xzu", "zxu", "xzu_cg", "zxu_cg"):
-            o = summary[key]
-            check(o["max_dx"] < 1e-10 and o["max_dprim"] < 1e-8,
-                  f"element-sharded {key}: {o}")
+        check_dryrun(dryrun(2, n_cards=1, timeout=300))
         print(f"  ({time.perf_counter() - t0:.1f} s with the ranks' start)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2158,21 +2173,41 @@ def scene_dict(sub, el, ref_v, ref_f):
                 edge_length=el)
 
 
-def sharded_f64_small(ck, device="cuda"):
+def check_dryrun(summary):
+    """The physics dryrun's bounds (both orders, both global steps) and the
+    geometry dryrun's, on the summary dryrun() returns."""
+    for key in ("xzu", "zxu", "xzu_cg", "zxu_cg"):
+        o = summary[key]
+        check(o["max_dx"] < 1e-10 and o["max_dprim"] < 1e-8,
+              f"element-sharded {key}: {o}")
+    g = summary["geometry"]
+    check(g["max_dx"] < 1e-9 and g["max_dfv_rel"] < 1e-8,
+          f"geometry dryrun: {g}")
+
+
+def placement_text(ranks):
+    return ", ".join(f"rank {r['rank']} {r['device']} (current "
+                     f"{r['current_device']}, {r['backend']})" for r in ranks)
+
+
+def sharded_f64_small(ck, world=2, n_cards=1):
     """Phase 4's small scene (20,402-triangle reference: the subgroup
-    cache), f64, on the CG path: 2 gloo ranks on the card against the
-    unsharded solve on the card (rtol 1e-8, equal rejects and refreshes)."""
+    cache), f64, on the CG path: `world` ranks placed by rank_placement on
+    n_cards cards (2 gloo ranks on one card in phase 13) against the
+    unsharded solve on the card (rtol 1e-8, equal rejects and refreshes,
+    the ranks bit-equal)."""
     from aa_admm_tpu_torch.apps import wire_mesh_opt as wm
     from aa_admm_tpu_torch.parallel import ensemble as ens
     from aa_admm_tpu_torch.parallel import geometry as pgeo
     sub, el, ref_v, ref_f = small_scene(SMALL_N_REF)
     ref = wm.optimize_mesh(sub, ref_v, ref_f, max_iter=20, anderson_m=5,
                            edge_length=el, result_dir="result/smoke_small",
-                           device=device, dense_threshold=0)
-    ranks = ens.run_ranks(2, pgeo.wire_mesh_case, scene_dict(sub, el, ref_v,
-                                                             ref_f),
-                          dict(max_iter=20, dense_threshold=0,
-                               device=device), timeout=240)
+                           device="cuda", dense_threshold=0)
+    ranks = ens.run_ranks(world, pgeo.wire_mesh_case,
+                          scene_dict(sub, el, ref_v, ref_f),
+                          dict(max_iter=20, dense_threshold=0),
+                          n_cards=n_cards, timeout=240)
+    ens.check_placement(ranks, world, "cuda", n_cards)
     fv = np.asarray(ref.function_values)
     st = ref.stats
     rel = max(float(np.max(np.abs(r["fv"] / fv - 1))) if r["fv"].shape ==
@@ -2181,10 +2216,12 @@ def sharded_f64_small(ck, device="cuda"):
     same = all(r["rejects"] == ref.anderson_reset and all(
         r["stats"][k] == st[k] for k in ("trials", "cp_refreshes"))
         for r in ranks)
-    bits = (np.array_equal(ranks[0]["fv"], ranks[1]["fv"])
-            and np.array_equal(ranks[0]["x"], ranks[1]["x"]))
+    bits = all(np.array_equal(ranks[0]["fv"], r["fv"])
+               and r["rejects"] == ranks[0]["rejects"]
+               and np.array_equal(ranks[0]["x"], r["x"]) for r in ranks)
     r0 = ranks[0]["stats"]
-    print(f"  f64 small scene, 2 ranks vs unsharded on the card: "
+    print(f"  f64 small scene, {world} ranks ({placement_text(ranks)}) vs "
+          f"unsharded on the card: "
           f"{len(fv)} iterations, {st['trials']} trials, "
           f"{st['cp_refreshes']} refreshes (ranks {[r['stats']['cp_refreshes'] for r in ranks]}), "
           f"max rel fv diff {rel:.3e}, max |x diff| {dx:.3e}, rejects equal "
@@ -2203,23 +2240,29 @@ def sharded_f64_small(ck, device="cuda"):
               f"{r['launches']}")
 
 
-def sharded_full(ck, scene, unsharded_ms, device="cuda"):
-    """wiremesh-synthetic-231k, f32, 5 ALM iterations on 2 gloo ranks on the
-    one card (the main path of phase 13): quality, ms per trial beside
-    phase 5's unsharded figure, collectives and bytes per trial, each rank's
-    launches, and whether the ranks' replicated values are bit-equal.
-    Returns the ranks' results."""
+def sharded_full(ck, scene, refs, world=2, n_cards=1):
+    """wiremesh-synthetic-231k, f32, 5 ALM iterations on `world` ranks
+    placed by rank_placement on n_cards cards (the main path of phase 13:
+    2 gloo ranks on one card; of phase 14: one rank per card under NCCL):
+    quality, ms per trial beside `refs` ({label: ms per trial or None}),
+    collectives, bytes and host ms inside them per trial, the first two
+    iterations repeated (ms per trial warm, and under torch.profiler the
+    device ms per trial of the compute and of the nccl kernels), each
+    rank's placement and launches, and whether the ranks' replicated
+    values are bit-equal. Returns the ranks' results."""
     from aa_admm_tpu_torch.apps.wire_mesh_opt import check_wiremesh_error
     from aa_admm_tpu_torch.parallel import ensemble as ens
     from aa_admm_tpu_torch.parallel import geometry as pgeo
     sub, el, ref_v, ref_f = scene
     n_it = 5
     t0 = time.perf_counter()
-    ranks = ens.run_ranks(2, pgeo.wire_mesh_case,
+    ranks = ens.run_ranks(world, pgeo.wire_mesh_case,
                           scene_dict(sub, el, ref_v, ref_f),
-                          dict(max_iter=n_it, dtype=np.float32, device=device),
-                          timeout=300)
+                          dict(max_iter=n_it, dtype=np.float32,
+                               repeat_iters=2),
+                          n_cards=n_cards, timeout=300)
     wall = time.perf_counter() - t0
+    ens.check_placement(ranks, world, "cuda", n_cards)
     out = ranks[0]["x"]
     min_a, max_a = np.pi * 0.25, np.pi * 0.75
     with contextlib.redirect_stdout(io.StringIO()):
@@ -2228,7 +2271,11 @@ def sharded_full(ck, scene, unsharded_ms, device="cuda"):
     for r in ranks:
         st = r["stats"]
         tr = st["trials"]
-        print(f"  rank {r['rank']} rows {r['rows']}: setup_ADMM "
+        rp = r["repeat"]
+        n_rp = rp["trials"]
+        print(f"  rank {r['rank']} on {r['device']} (current card "
+              f"{r['current_device']}, {r['backend']}) rows {r['rows']}: "
+              f"setup_ADMM "
               f"{r['setup_s']:.2f} s, solve {st['solve_s']:.3f} s, "
               f"{st['solve_s'] / tr * 1e3:.1f} ms/trial over {tr} trials "
               f"({len(r['fv'])} accepted), {st['cg_iters']} CG iterations, "
@@ -2237,19 +2284,26 @@ def sharded_full(ck, scene, unsharded_ms, device="cuda"):
               f"{(st['collectives'] - 1) / tr:.1f} without the gather), "
               f"{st['comm_bytes'] / tr / 1e6:.2f} MB summed/trial, "
               f"{st['comm_s'] / tr * 1e3:.1f} ms/trial inside them, "
-              f"launches {r['launches']}")
+              f"launches {r['launches']}; its first 2 iterations again "
+              f"({n_rp} trials): {rp['ms'] / n_rp:.1f} ms/trial, under the "
+              f"profiler {rp['profiled_ms'] / n_rp:.1f} ms/trial with "
+              f"{(rp['device_ms'] - rp['nccl_ms']) / n_rp:.2f} device "
+              f"ms/trial in the compute kernels and "
+              f"{rp['nccl_ms'] / n_rp:.2f} in {rp['nccl_kernels']} nccl "
+              f"kernels (their wait for the other ranks included)")
         split = ericson_launch_split(st, r["rows"][1] - r["rows"][0])
         check(sum(split.values()) == r["launches"]["ericson_idx"],
               f"sharded full: rank {r['rank']} B1 launches "
               f"{r['launches']['ericson_idx']} != {split}")
     st = ranks[0]["stats"]
     ms_trial = st["solve_s"] / st["trials"] * 1e3
-    ref_txt = (f"{unsharded_ms:.1f} ms/trial unsharded (phase 5)"
-               if unsharded_ms else "phase 5 not run")
+    ref_txt = "; ".join(f"{ms:.1f} {label}" if ms else f"{label}: not run"
+                        for label, ms in refs.items())
     bits = all(np.array_equal(r["fv"], ranks[0]["fv"])
                and r["rejects"] == ranks[0]["rejects"]
                and np.array_equal(r["x"], out) for r in ranks)
-    print(f"  2 ranks: {ms_trial:.1f} ms/trial against {ref_txt}; "
+    print(f"  {world} ranks ({ranks[0]['backend']}): {ms_trial:.1f} "
+          f"ms/trial against {ref_txt}; "
           f"{wall:.1f} s with the ranks' start, scene hand-over and set-up; "
           f"replicated values bit-equal across ranks: {bits}")
     print(f"  edge err mean {e_b.mean():.4e} -> {e_a.mean():.4e}, max "
@@ -2275,11 +2329,12 @@ def sharded_full(ck, scene, unsharded_ms, device="cuda"):
 
 
 def phase_sharded_geometry(ck, scene, unsharded_ms):
-    """The f64 dryrun on 2 ranks on the card, the f64 small-scene parity and
-    the full-width f32 main path; returns the full-width ranks' results."""
+    """The f64 dryrun on 2 ranks on one card (n_cards=1: gloo on any
+    machine), the f64 small-scene parity and the full-width f32 main path;
+    returns the full-width ranks' results."""
     from aa_admm_tpu_torch.parallel.geometry import dryrun_geometry
     t0 = time.perf_counter()
-    out = dryrun_geometry(2, timeout=180)
+    out = dryrun_geometry(2, n_cards=1, timeout=180)
     check(out["max_dx"] < 1e-9 and out["max_dfv_rel"] < 1e-8,
           f"geometry dryrun: {out}")
     print(f"  ({time.perf_counter() - t0:.1f} s with the ranks' start)")
@@ -2287,9 +2342,42 @@ def phase_sharded_geometry(ck, scene, unsharded_ms):
     sharded_f64_small(ck)
     print(f"  ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    ranks = sharded_full(ck, scene, unsharded_ms)
+    ranks = sharded_full(ck, scene, {"ms/trial unsharded (phase 5)":
+                                     unsharded_ms})
     print(f"  ({time.perf_counter() - t0:.1f} s)")
     return ranks
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the sharded paths over cards, one rank per card under NCCL
+# ---------------------------------------------------------------------------
+
+def phase_multicard(ck, scene, unsharded_ms, gloo_ms):
+    """Phase 14 on world = min(4, cards) cards: the physics and geometry
+    dryruns, the f64 small scene and the full-width main path, one rank per
+    card under NCCL. Prints one line and does nothing with fewer than two
+    cards. Returns the number of cards it ran on (0 when it did not)."""
+    from aa_admm_tpu_torch.parallel import ensemble as ens
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"  phase 14 needs two cards and found {n}: not run")
+        return 0
+    world = min(4, n)
+    print(f"  {world} ranks on {world} of {n} cards, one per card under "
+          f"NCCL (each run below checks its ranks' placement)")
+    t0 = time.perf_counter()
+    check_dryrun(ens.dryrun(world, n_cards=world, timeout=300))
+    print(f"  ({time.perf_counter() - t0:.1f} s with the ranks' start)")
+    t0 = time.perf_counter()
+    sharded_f64_small(ck, world, n_cards=world)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    sharded_full(ck, scene, {"ms/trial unsharded (phase 5)": unsharded_ms,
+                             "ms/trial on 2 gloo ranks on one card "
+                             "(phase 13)": gloo_ms},
+                 world, n_cards=world)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    return world
 
 
 def main(argv):
@@ -2299,7 +2387,7 @@ def main(argv):
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from aa_admm_tpu_torch.ops import cuda_kernels as ck
-    want = set(range(1, 14))
+    want = set(range(1, 15))
     if argv[:1] == ["--phases"] and len(argv) == 2:
         want = {1} | {int(a) for a in argv[1].split(",")}
     elif argv:
@@ -2398,7 +2486,21 @@ def main(argv):
         phase("13 geometry sharded over vertex rows and elements (2 gloo "
               "ranks)", t0)
 
-    if want != set(range(1, 14)):
+    if 14 in want:
+        t0 = time.perf_counter()
+        if full is None:
+            full = full_scene()
+        gloo_ms = None
+        if 13 in want:
+            st = shard_ranks[0]["stats"]
+            gloo_ms = st["solve_s"] / st["trials"] * 1e3
+        cards = phase_multicard(
+            ck, full, solver.stats["solve_s"] / solver.stats["trials"] * 1e3
+            if 5 in want else None, gloo_ms)
+        phase(f"14 sharded paths over cards ({cards} cards under NCCL)"
+              if cards else "14 sharded paths over cards (not run)", t0)
+
+    if want != set(range(1, 15)):
         print(f"  total {time.perf_counter() - T0:.1f} s; phases "
               f"{sorted(want)} only, so no result lines")
         return 3

@@ -145,7 +145,7 @@ class _ThreadComm:
     """all_reduce of P threads: each deposits its partial and sums all of
     them in rank order after a barrier; counts like ElemComm."""
 
-    def __init__(self, group):
+    def __init__(self, group, device):
         self.slots, self.barrier, self.r = group
         self.count = self.nbytes = 0
         self.seconds = 0.0
@@ -435,8 +435,8 @@ def test_wire_mesh_group_cache_sharded_on_gloo_ranks(tmp_path):
     scene = dict(verts=sub.verts, faces=[list(f) for f in sub.faces],
                  ref_v=ref_v, ref_f=ref_f, edge_length=el)
     ranks = tens.run_ranks(2, pg.wire_mesh_case, scene,
-                           dict(max_iter=20, device="cpu",
-                                dense_threshold=0), timeout=300)
+                           dict(max_iter=20, dense_threshold=0),
+                           device="cpu", timeout=300)
     fv_ref = np.asarray(ref.function_values)
     for r in ranks:
         assert r["fv"].shape == fv_ref.shape

@@ -101,7 +101,8 @@ def _expected_collectives(order, branches, cg_iters=None):
 
 def _run(world, spec):
     out = tempfile.mkdtemp(prefix="shard_test_")
-    tens.run_ranks(world, tens.sharded_case, spec, out, timeout=300)
+    tens.run_ranks(world, tens.sharded_case, spec, out, device="cpu",
+                   timeout=300)
     return [dict(np.load(f"{out}/rank{r}.npz")) for r in range(world)]
 
 
@@ -131,7 +132,7 @@ def test_split_is_contiguous_and_ragged():
 @pytest.mark.parametrize("order", ["xzu", "zxu"])
 def test_elem_sharded_step_matches_jax(order, path):
     spec = dict(order=order, iters=ITERS, m=M, prefer_dp=1, scenes=1,
-                device="cpu", solver=path)
+                solver=path)
     ranks = _run(2, spec)
     refs = _references(order, 1, path)
     for r in ranks:
@@ -150,8 +151,7 @@ def test_elem_sharded_step_matches_jax(order, path):
 def test_dp_elem_ensemble_matches_jax():
     """World 4 as dp 2 x elem 2: each dp group steps its two of the four
     xzu replicas as one tiled, element-sharded ensemble."""
-    spec = dict(order="xzu", iters=ITERS, m=M, prefer_dp=2, scenes=4,
-                device="cpu")
+    spec = dict(order="xzu", iters=ITERS, m=M, prefer_dp=2, scenes=4)
     ranks = _run(4, spec)
     refs = _references("xzu", 4)
     assert sorted(tuple(r["scenes"]) for r in ranks) == [(0, 1), (0, 1),
@@ -173,17 +173,19 @@ def test_convert_refuses_a_jax_elem_sharding_and_names_shard_system():
 
 def test_a_failing_rank_fails_the_call():
     with pytest.raises(RuntimeError, match="rank [01] failed"):
-        tens.run_ranks(2, tens.sharded_case,
-                       dict(order="no-such-order", device="cpu"),
-                       tempfile.mkdtemp(prefix="shard_test_"), timeout=120)
+        tens.run_ranks(2, tens.sharded_case, dict(order="no-such-order"),
+                       tempfile.mkdtemp(prefix="shard_test_"), device="cpu",
+                       timeout=120)
 
 
 def test_dryrun_two_ranks():
     summary = tens.dryrun(2, device="cpu", timeout=300)
-    assert sorted(summary) == ["xzu", "xzu_cg", "zxu", "zxu_cg"]
-    for o in summary.values():
-        assert o["max_dx"] < 1e-10
-        assert o["max_dprim"] < 1e-8
+    assert sorted(summary) == ["geometry", "xzu", "xzu_cg", "zxu", "zxu_cg"]
+    for order in ("xzu", "xzu_cg", "zxu", "zxu_cg"):
+        assert summary[order]["max_dx"] < 1e-10
+        assert summary[order]["max_dprim"] < 1e-8
+    geo = summary["geometry"]
+    assert geo["max_dx"] < 1e-9 and geo["max_dfv_rel"] < 1e-8
     assert summary["xzu"]["collectives"] == 1 + 7 * 3
     assert summary["xzu_cg"]["collectives"] > 1 + 5 * 3
 
@@ -279,11 +281,14 @@ def test_ragged_shards_with_an_empty_rank(order):
 def test_dryrun_on_card():
     """chip_smoke phase 12's sharding check: two ranks on the one card
     through gloo (which takes CUDA tensors) against the unsharded f64
-    step, both orders, on the dense and the CG global step."""
+    step, both orders, on the dense and the CG global step, and the
+    geometry dryrun's solve."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    summary = tens.dryrun(2, timeout=300)
-    assert sorted(summary) == ["xzu", "xzu_cg", "zxu", "zxu_cg"]
-    for o in summary.values():
-        assert o["max_dx"] < 1e-10
-        assert o["max_dprim"] < 1e-8
+    summary = tens.dryrun(2, n_cards=1, timeout=300)
+    assert sorted(summary) == ["geometry", "xzu", "xzu_cg", "zxu", "zxu_cg"]
+    for order in ("xzu", "xzu_cg", "zxu", "zxu_cg"):
+        assert summary[order]["max_dx"] < 1e-10
+        assert summary[order]["max_dprim"] < 1e-8
+    geo = summary["geometry"]
+    assert geo["max_dx"] < 1e-9 and geo["max_dfv_rel"] < 1e-8
