@@ -34,8 +34,9 @@
 //   4. every block reduces the partials in one fixed order, forms alpha,
 //      reads x and r, updates them with p and Ap from its registers and
 //      writes its partial r.r;
-//   5. the last block to finish, known from an integer ticket after a
-//      __threadfence(), reduces the r.r partials in the same fixed order.
+//   5. the last block to finish, known from an integer ticket (a
+//      release/acquire atomic), reduces the r.r partials in the same fixed
+//      order.
 //   No float atomics: f32 CG is bit-reproducible run to run. The scratch
 //   (partials, the two counters) belongs to the wrapper, which keeps one
 //   set per (device, dtype, c, grid) for calls ordered on one stream.
@@ -46,13 +47,37 @@
 // The given entries, for a CG whose rows are split over ranks (the sharded
 // geometry solve): alpha and beta need the column dots of ALL rows, so the
 // caller forms each rank's partial dot (cg_dot), sums the partials over the
-// ranks and hands the sum in. No grid-wide barrier, so no launch relies on
-// its grid being resident at once (two rank processes may share a card):
-//   cg_dot: partials over a fixed grid (B3's first launch), then one block
-//     reduces them in a fixed order;
+// ranks and hands the sum in:
+//   cg_dot: this rank's column dots a.b;
 //   cg_update1_given: from the summed pAp, alpha; x += alpha p, r -= alpha
-//     Ap and this rank's r.r partials; then one block reduces them;
+//     Ap and this rank's r.r;
 //   cg_update2_given: from the summed rz_new, beta; p = z + beta p.
+// cg_dot and cg_update1_given are one launch each (they were two: partial
+// sums, then a one-block final sum that waited for the first launch to
+// drain, more than cg_dot's whole bound of 0.8 us at a rank's n = 115,200):
+//   1. the grid is one wave: one 256-thread block per 256 4-row chunks, no
+//      more blocks than the card holds at once (cg_given_max_blocks: the
+//      occupancy API times the SMs); fixed for a card, dtype, c and n, so
+//      the reduction order is fixed;
+//   2. a thread owns 4-row chunks, moved as 16-byte loads and stores (the
+//      ragged last chunk element by element); while the card holds a
+//      thread per chunk (n up to 4 rows a resident thread) each thread has
+//      one and issues all its loads (p, Ap; and x, r) before its first
+//      multiply, so each warp keeps several 16-byte loads in flight;
+//      beyond that a grid-stride loop over chunks;
+//   3. each block writes its partial sum and draws a ticket from a counter
+//      that only grows, by one release/acquire atomic (about 0.3-0.5 us
+//      less than a fence on each side of a plain one); the block that
+//      draws the last ticket of the launch reduces the partials in one
+//      fixed order, through L2, and writes the (c,) result. No block waits for another, so no launch
+//      needs its grid resident at once (two rank processes may share a
+//      card), and the counter stays valid under CUDA-graph replay.
+//   No float atomics, so the sums repeat bit for bit. At a rank's
+//   n = 115,200, f32, c = 3, an H100 takes about 3.5 and 5.3 us (bounds 0.8
+//   and 2.5 us): latency bounds them, not bytes (the launch, one round trip
+//   for the loads, then the ticket's chain of L2 round trips). A variant
+//   whose blocks sum their partials in thread-block clusters through
+//   distributed shared memory was slower (tools/port_cg_given_cost.py).
 
 #include <cuda_runtime.h>
 
@@ -61,6 +86,7 @@ namespace {
 constexpr int kThreads = 256;       // B3
 constexpr int kThreads1 = 256;      // B2
 constexpr int kMaxBlocksPerSm1 = 1;
+constexpr int kThreadsG = 256;      // cg_dot, cg_update1_given
 
 // Sum v[0..C) over the block in a fixed order (a shuffle tree within each
 // warp, then thread 0 adds the warps' sums in warp order); the total is
@@ -130,6 +156,43 @@ __device__ void grid_barrier(unsigned long long* count, unsigned nb) {
     __threadfence();
   }
   __syncthreads();
+}
+
+// A ticket: adds 1 to *t and returns the old value, with release semantics
+// (this thread's earlier writes are visible to whoever reads the count it
+// leaves) and acquire semantics (the writes released by earlier tickets are
+// visible to it). One atomic in place of a fence before and after it.
+__device__ __forceinline__ unsigned long long ticket_acq_rel(unsigned long long* t) {
+  unsigned long long old;
+  asm volatile("atom.add.acq_rel.gpu.u64 %0, [%1], 1;" : "=l"(old) : "l"(t) : "memory");
+  return old;
+}
+
+// The end of a one-launch reduction: the block's sum of v is its partial;
+// the block that draws the launch's last ticket (a counter that only grows,
+// nb per launch) reduces the nb partials in a fixed order into out (C,).
+// Its thread 0 acquired the other blocks' partials with the ticket; the
+// block barrier passes them on to its other threads, which read them
+// through L2.
+template <typename T, int C, int NT>
+__device__ void finish_sum(const T v[C], T* partials, unsigned long long* ticket,
+                           unsigned nb, T* out) {
+  T s[C];
+  block_sum<T, C, NT>(v, s);
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) partials[blockIdx.x * C + j] = s[j];
+    last = ticket_acq_rel(ticket) % nb == nb - 1;
+  }
+  __syncthreads();
+  if (last) {
+    reduce_partials<T, C, NT, true>(partials, nb, s);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) out[j] = s[j];
+    }
+  }
 }
 
 // 16-byte loads and stores of 4 floats or 2 doubles.
@@ -274,23 +337,7 @@ cg1_fused(const T* __restrict__ rz, const T* __restrict__ rr_prev,
       store_chunk<T, E>(r, q, N, rv[0]);
     }
   }
-  block_sum<T, C, kThreads1>(v, s);
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int j = 0; j < C; ++j) rr_part[blockIdx.x * C + j] = s[j];
-    __threadfence();
-    last = atomicAdd(sync + 1, 1ULL) % nb == nb - 1;
-  }
-  __syncthreads();
-  if (last) {
-    __threadfence();
-    reduce_partials<T, C, kThreads1, true>(rr_part, nb, s);
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int j = 0; j < C; ++j) rr[j] = s[j];
-    }
-  }
+  finish_sum<T, C, kThreads1>(v, rr_part, sync + 1, nb, rr);
 }
 
 // partials[block, j] = sum over this block's rows of a[i, j] * b[i, j].
@@ -339,25 +386,43 @@ __global__ void cg2_update(const T* __restrict__ rz_old, const T* __restrict__ r
   }
 }
 
-// One block reduces the partials (nb, C) of an earlier launch to out (C,).
+// cg_dot in one launch: out = a.b per column over a grid of nb blocks,
+// a thread per 4-row chunk (a grid-stride loop when chunks outnumber the
+// threads), its loads issued before its products.
 template <typename T, int C>
-__global__ void reduce_final(const T* __restrict__ partials, int nb, T* __restrict__ out) {
-  T s[C];
-  reduce_partials<T, C, kThreads, false>(partials, nb, s);
-  if (threadIdx.x == 0) {
+__global__ void __launch_bounds__(kThreadsG)
+dot_given(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+          T* __restrict__ partials, unsigned long long* __restrict__ ticket,
+          long long n) {
+  constexpr int E = 4 * C;
+  const long long N = n * C, nq = (n + 3) / 4;
+  const long long stride = (long long)gridDim.x * kThreadsG;
+  T v[C];
 #pragma unroll
-    for (int j = 0; j < C; ++j) out[j] = s[j];
+  for (int j = 0; j < C; ++j) v[j] = T(0);
+  for (long long q = (long long)blockIdx.x * kThreadsG + threadIdx.x; q < nq;
+       q += stride) {
+    T ac[E], bc[E];
+    load_chunk<T, E>(a, q, N, ac);
+    load_chunk<T, E>(b, q, N, bc);
+#pragma unroll
+    for (int k = 0; k < E; ++k) v[k % C] += ac[k] * bc[k];
   }
+  finish_sum<T, C, kThreadsG>(v, partials, ticket, gridDim.x, out);
 }
 
-// cg_update1_given's update: alpha from the given (all-rank) pAp; x, r
-// updated in place; partials[block, j] = this block's sum of r.r.
+// cg_update1_given in one launch: alpha from the given (all-rank) pAp;
+// x += alpha p, r -= alpha Ap in place; rr = this rank's r.r per column.
 template <typename T, int C>
-__global__ void cg1_given(const T* __restrict__ pap, const T* __restrict__ rz,
-                          const T* __restrict__ rr_prev, const T* __restrict__ thresh,
-                          const T* __restrict__ p, const T* __restrict__ ap,
-                          T* __restrict__ x, T* __restrict__ r,
-                          T* __restrict__ partials, long long n) {
+__global__ void __launch_bounds__(kThreadsG)
+cg1_given(const T* __restrict__ pap, const T* __restrict__ rz,
+          const T* __restrict__ rr_prev, const T* __restrict__ thresh,
+          const T* __restrict__ p, const T* __restrict__ ap, T* __restrict__ x,
+          T* __restrict__ r, T* __restrict__ rr, T* __restrict__ partials,
+          unsigned long long* __restrict__ ticket, long long n) {
+  constexpr int E = 4 * C;
+  const long long N = n * C, nq = (n + 3) / 4;
+  const long long stride = (long long)gridDim.x * kThreadsG;
   T alpha[C], v[C];
 #pragma unroll
   for (int j = 0; j < C; ++j) {
@@ -365,23 +430,18 @@ __global__ void cg1_given(const T* __restrict__ pap, const T* __restrict__ rz,
     alpha[j] = rr_prev[j] > thresh[j] ? a : T(0);
     v[j] = T(0);
   }
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const long long e = i * C + j;
-      x[e] = x[e] + alpha[j] * p[e];
-      const T re = r[e] - alpha[j] * ap[e];
-      r[e] = re;
-      v[j] += re * re;
-    }
+  for (long long q = (long long)blockIdx.x * kThreadsG + threadIdx.x; q < nq;
+       q += stride) {
+    T pc[E], apc[E], xc[E], rc[E];
+    load_chunk<T, E>(p, q, N, pc);
+    load_chunk<T, E>(ap, q, N, apc);
+    load_chunk<T, E>(x, q, N, xc);
+    load_chunk<T, E>(r, q, N, rc);
+    update_chunk<T, C>(alpha, pc, apc, xc, rc, v);
+    store_chunk<T, E>(x, q, N, xc);
+    store_chunk<T, E>(r, q, N, rc);
   }
-  T s[C];
-  block_sum<T, C, kThreads>(v, s);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int j = 0; j < C; ++j) partials[blockIdx.x * C + j] = s[j];
-  }
+  finish_sum<T, C, kThreadsG>(v, partials, ticket, gridDim.x, rr);
 }
 
 // cg_update2_given: beta from the given (all-rank) rz_new; p = z + beta p.
@@ -406,19 +466,36 @@ __global__ void cg2_given(const T* __restrict__ rz, const T* __restrict__ rz_old
 }
 
 template <typename T, int C>
-int dot(const T* a, const T* b, T* out, T* partials, long long n, int nb, cudaStream_t s) {
-  col_dot_partial<T, C><<<nb, kThreads, 0, s>>>(a, b, n, partials);
-  reduce_final<T, C><<<1, kThreads, 0, s>>>(partials, nb, out);
+int dot(const T* a, const T* b, T* out, T* partials, unsigned long long* ticket,
+        long long n, int nb, cudaStream_t s) {
+  dot_given<T, C><<<nb, kThreadsG, 0, s>>>(a, b, out, partials, ticket, n);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int C>
 int update1_given(const T* pap, const T* rz, const T* rr_prev, const T* thresh, const T* p,
-                  const T* ap, T* x, T* r, T* rr, T* partials, long long n, int nb,
-                  cudaStream_t s) {
-  cg1_given<T, C><<<nb, kThreads, 0, s>>>(pap, rz, rr_prev, thresh, p, ap, x, r, partials, n);
-  reduce_final<T, C><<<1, kThreads, 0, s>>>(partials, nb, rr);
+                  const T* ap, T* x, T* r, T* rr, T* partials, unsigned long long* ticket,
+                  long long n, int nb, cudaStream_t s) {
+  cg1_given<T, C><<<nb, kThreadsG, 0, s>>>(pap, rz, rr_prev, thresh, p, ap, x, r, rr,
+                                           partials, ticket, n);
   return (int)cudaGetLastError();
+}
+
+// Blocks of dot_given<T, C> and cg1_given<T, C> that the card holds at
+// once (the fewer of the two).
+template <typename T, int C>
+int given_max_blocks(int device, int* out) {
+  int sms = 0, occ = 0, least = 1 << 30;
+  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const void* kernels[] = {(const void*)dot_given<T, C>, (const void*)cg1_given<T, C>};
+  for (const void* k : kernels) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k, kThreadsG, 0);
+    if (e != cudaSuccess) return (int)e;
+    least = occ < least ? occ : least;
+  }
+  *out = least * sms;
+  return least > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 
 template <typename T, int C>
@@ -538,19 +615,24 @@ int dispatch2(const void* rz_old, const void* rr_prev, const void* thresh, const
   }
 
 template <typename T>
-int dispatch_dot(const void* a, const void* b, void* out, void* partials, long long n, int c,
-                 int nb, void* stream) {
-  CG_BY_COLS(dot, (const T*)a, (const T*)b, (T*)out, (T*)partials, n, nb,
-             (cudaStream_t)stream)
+int dispatch_dot(const void* a, const void* b, void* out, void* partials, void* ticket,
+                 long long n, int c, int nb, void* stream) {
+  CG_BY_COLS(dot, (const T*)a, (const T*)b, (T*)out, (T*)partials,
+             (unsigned long long*)ticket, n, nb, (cudaStream_t)stream)
 }
 
 template <typename T>
 int dispatch1_given(const void* pap, const void* rz, const void* rr_prev, const void* thresh,
                     const void* p, const void* ap, void* x, void* r, void* rr, void* partials,
-                    long long n, int c, int nb, void* stream) {
+                    void* ticket, long long n, int c, int nb, void* stream) {
   CG_BY_COLS(update1_given, (const T*)pap, (const T*)rz, (const T*)rr_prev,
              (const T*)thresh, (const T*)p, (const T*)ap, (T*)x, (T*)r, (T*)rr,
-             (T*)partials, n, nb, (cudaStream_t)stream)
+             (T*)partials, (unsigned long long*)ticket, n, nb, (cudaStream_t)stream)
+}
+
+template <typename T>
+int dispatch_given_max_blocks(int c, int device, int* out) {
+  CG_BY_COLS(given_max_blocks, device, out)
 }
 
 template <typename T>
@@ -601,28 +683,38 @@ int cg_update2_f64(const void* rz_old, const void* rr_prev, const void* thresh, 
   return dispatch2<double>(rz_old, rr_prev, thresh, r, z, p, rz, partials, n, c, nb, stream);
 }
 
-int cg_dot_f32(const void* a, const void* b, void* out, void* partials, long long n, int c,
-               int nb, void* stream) {
-  return dispatch_dot<float>(a, b, out, partials, n, c, nb, stream);
+int cg_dot_f32(const void* a, const void* b, void* out, void* partials, void* ticket,
+               long long n, int c, int nb, void* stream) {
+  return dispatch_dot<float>(a, b, out, partials, ticket, n, c, nb, stream);
 }
 
-int cg_dot_f64(const void* a, const void* b, void* out, void* partials, long long n, int c,
-               int nb, void* stream) {
-  return dispatch_dot<double>(a, b, out, partials, n, c, nb, stream);
+int cg_dot_f64(const void* a, const void* b, void* out, void* partials, void* ticket,
+               long long n, int c, int nb, void* stream) {
+  return dispatch_dot<double>(a, b, out, partials, ticket, n, c, nb, stream);
 }
 
 int cg_update1_given_f32(const void* pap, const void* rz, const void* rr_prev,
                          const void* thresh, const void* p, const void* ap, void* x, void* r,
-                         void* rr, void* partials, long long n, int c, int nb, void* stream) {
-  return dispatch1_given<float>(pap, rz, rr_prev, thresh, p, ap, x, r, rr, partials, n, c, nb,
-                                stream);
+                         void* rr, void* partials, void* ticket, long long n, int c, int nb,
+                         void* stream) {
+  return dispatch1_given<float>(pap, rz, rr_prev, thresh, p, ap, x, r, rr, partials, ticket,
+                                n, c, nb, stream);
 }
 
 int cg_update1_given_f64(const void* pap, const void* rz, const void* rr_prev,
                          const void* thresh, const void* p, const void* ap, void* x, void* r,
-                         void* rr, void* partials, long long n, int c, int nb, void* stream) {
-  return dispatch1_given<double>(pap, rz, rr_prev, thresh, p, ap, x, r, rr, partials, n, c,
-                                 nb, stream);
+                         void* rr, void* partials, void* ticket, long long n, int c, int nb,
+                         void* stream) {
+  return dispatch1_given<double>(pap, rz, rr_prev, thresh, p, ap, x, r, rr, partials, ticket,
+                                 n, c, nb, stream);
+}
+
+int cg_given_max_blocks_f32(int c, int device, int* out) {
+  return dispatch_given_max_blocks<float>(c, device, out);
+}
+
+int cg_given_max_blocks_f64(int c, int device, int* out) {
+  return dispatch_given_max_blocks<double>(c, device, out);
 }
 
 int cg_update2_given_f32(const void* rz, const void* rz_old, const void* rr_prev,

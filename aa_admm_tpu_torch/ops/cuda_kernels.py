@@ -14,7 +14,9 @@ replace the JAX package's three Pallas kernels
   (the sharded geometry solve): ``cg_dot`` (this rank's column dots, in a
   fixed order), ``cg_update1_given`` (B2's update from an all-rank pAp; it
   returns this rank's r.r) and ``cg_update2_given`` (B3's update from an
-  all-rank rz). None waits on a grid-wide barrier.
+  all-rank rz), one launch each. None waits on a grid-wide barrier.
+  ``cg_dot`` and ``cg_update1_given`` take an optional ``out`` (c,) tensor
+  (a row of a larger buffer, say) for their result.
 
 Dispatch is by the tensors' device alone: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the twin. Nothing falls back.
@@ -37,9 +39,11 @@ kernel, however many CUDA launches that call takes.
 
 Cached state, per process: B1's padded copy of each triangle table (a few
 tables, rebuilt when the table changes in place; made on the table's card)
-and B2's grid limit and scratch (its partial sums and barrier counters, one
-set per card, dtype, c and grid size; calls that share a set must be
-ordered on one stream, as the solver's are).
+and the grid limits and scratch of B2, ``cg_dot`` and ``cg_update1_given``
+(partial sums and counters, one set per entry, card, dtype, c and grid
+size; calls that share a set must be ordered on one stream, as the
+solver's are). The scratch is made on a set's first call, which must not
+be under CUDA-graph capture.
 """
 
 from __future__ import annotations
@@ -82,15 +86,17 @@ _ARGTYPES = {
     "cg_update1": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "cg_update1_max_blocks": [_I, _I, _P],
     "cg_update2": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
-    "cg_dot": [_P, _P, _P, _P, _LL, _I, _I, _P],
-    "cg_update1_given": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
-                         _P],
+    "cg_dot": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "cg_update1_given": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
+                         _I, _P],
+    "cg_given_max_blocks": [_I, _I, _P],
     "cg_update2_given": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
 }
 _LIB_OF = {"ericson_candidates": "ericson", "ericson_candidates_idx": "ericson",
            "cg_update1": "cg_update", "cg_update1_max_blocks": "cg_update",
            "cg_update2": "cg_update", "cg_dot": "cg_update",
-           "cg_update1_given": "cg_update", "cg_update2_given": "cg_update"}
+           "cg_update1_given": "cg_update", "cg_update2_given": "cg_update",
+           "cg_given_max_blocks": "cg_update"}
 # B1: lanes per query are raised (powers of two up to 32) until about this
 # many threads are in flight: four 256-thread blocks on each of 132 SMs.
 ERICSON_TARGET_THREADS = 131072
@@ -102,12 +108,13 @@ _MAX_TABLES = 4
 CG_THREADS = 256
 CG_MAX_BLOCKS = 528          # 4 blocks on each of the H100's 132 SMs
 CG_MAX_COLS = 4
-# B2's grid: 256-thread blocks of 4 rows a thread (kThreads1 and the
-# 4-row chunks of cg_update.cu), no more than the card holds at once.
+# B2's grid and that of cg_dot and cg_update1_given: 256-thread blocks of
+# 4 rows a thread (kThreads1, kThreadsG and the 4-row chunks of
+# cg_update.cu), no more than the card holds at once.
 CG1_THREADS = 256
 CG1_ROWS = 4
-_CG1_MAX_BLOCKS: dict = {}   # (card index, dtype, c) -> blocks
-_CG1_SCRATCH: dict = {}      # (card index, dtype, c, blocks) -> tensors
+_MAX_BLOCKS: dict = {}       # (entry, card index, dtype, c) -> blocks
+_SCRATCH: dict = {}          # (entry, card index, dtype, c, blocks) -> tensors
 
 
 def reset_launch_counts():
@@ -206,20 +213,26 @@ def _require(cond: bool, msg: str):
 
 def _on_cuda(tensors, entry: str) -> bool:
     """True for CUDA inputs (launch), False for CPU inputs (twin); raises on
-    mixed devices, other devices or unsupported dtypes."""
+    mixed devices, other devices or unsupported dtypes. (The checks build
+    their messages only to raise: this runs on every call of a host-paced
+    loop.)"""
     dev = tensors[0].device
     dt = tensors[0].dtype
     for t in tensors:
-        _require(t.device == dev, f"{entry}: all inputs must be on one device")
-        _require(t.dtype == dt, f"{entry}: all inputs must share one dtype")
-    _require(dt in _SUFFIX, f"{entry}: dtype {dt} not supported "
-                            f"(float32 or float64)")
+        if t.device != dev:
+            raise ValueError(f"{entry}: all inputs must be on one device")
+        if t.dtype != dt:
+            raise ValueError(f"{entry}: all inputs must share one dtype")
+    if dt not in _SUFFIX:
+        raise ValueError(f"{entry}: dtype {dt} not supported (float32 or "
+                         f"float64)")
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
         raise ValueError(f"{entry}: no kernel for device {dev}")
     for t in tensors:
-        _require(t.is_contiguous(), f"{entry}: inputs must be contiguous")
+        if not t.is_contiguous():
+            raise ValueError(f"{entry}: inputs must be contiguous")
     return True
 
 
@@ -400,43 +413,71 @@ def cg_blocks(n: int) -> int:
 
 def _check_cg(entry, vecs, scalars):
     n_c = vecs[0].shape
-    _require(vecs[0].dim() == 2, f"{entry}: vectors must be (n, c)")
+    if len(n_c) != 2:
+        raise ValueError(f"{entry}: vectors must be (n, c)")
     for v in vecs:
-        _require(v.shape == n_c, f"{entry}: vectors must share shape (n, c)")
+        if v.shape != n_c:
+            raise ValueError(f"{entry}: vectors must share shape (n, c)")
     for s in scalars:
-        _require(s.shape == (n_c[1],), f"{entry}: scalars must be (c,)")
+        if s.shape != n_c[1:]:
+            raise ValueError(f"{entry}: scalars must be (c,)")
     return n_c
+
+
+def _resident_blocks(entry: str, c: int, dtype, device) -> int:
+    """Blocks of the kernels behind `entry` that the card holds at once
+    (the occupancy API times the SMs), asked of the card once per device,
+    dtype and c."""
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    key = (entry, device.index, dtype, c)
+    most = _MAX_BLOCKS.get(key)
+    if most is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):       # the occupancy API's card
+            _check(_fn(entry, dtype)(c, device.index, ctypes.addressof(out)),
+                   entry)
+        most = _MAX_BLOCKS[key] = out.value
+    return most
+
+
+def one_wave_blocks(n: int, most: int) -> int:
+    """A grid for n rows of 4-row chunks, CG1_THREADS chunks a block: enough
+    blocks for a chunk per thread, but no more than `most` (what the card
+    holds at once), and at least one."""
+    return max(1, min(most, -(-n // (CG1_ROWS * CG1_THREADS))))
 
 
 def cg1_blocks(n: int, c: int, dtype, device) -> int:
     """B2's grid for n rows: one block per 1,024 rows, but no more than the
-    card holds at once (asked of the card once per device, dtype and c).
-    Fixed for a card and n, so the reduction order is fixed."""
-    key = (device.index, dtype, c)
-    most = _CG1_MAX_BLOCKS.get(key)
-    if most is None:
-        out = ctypes.c_int(0)
-        with torch.cuda.device(device):       # the occupancy API's card
-            _check(_fn("cg_update1_max_blocks", dtype)(
-                c, device.index, ctypes.addressof(out)),
-                "cg_update1_max_blocks")
-        most = _CG1_MAX_BLOCKS[key] = out.value
-    return max(1, min(most, -(-n // (CG1_ROWS * CG1_THREADS))))
+    card holds at once. Fixed for a card and n, so the reduction order is
+    fixed."""
+    return one_wave_blocks(
+        n, _resident_blocks("cg_update1_max_blocks", c, dtype, device))
 
 
-def _cg1_scratch(dtype, device, c: int, nb: int):
-    """B2's partial sums (2, nb, c) and its two counters (barrier arrivals,
-    finishing tickets), kept per (device, dtype, c, nb). The counters only
-    grow, by nb per launch each, so they stay valid across calls, CUDA-graph
-    replays and solves that alternate on one stream. Made outside any
-    stream capture, so that the counters start from zero on the device."""
-    key = (device.index, dtype, c, nb)
-    s = _CG1_SCRATCH.get(key)
+def cg_given_blocks(n: int, c: int, dtype, device) -> int:
+    """The grid of cg_dot and cg_update1_given for n rows: one wave, as
+    B2's, of their own kernels. Fixed for a card, dtype, c and n, so the
+    reduction order is fixed."""
+    return one_wave_blocks(
+        n, _resident_blocks("cg_given_max_blocks", c, dtype, device))
+
+
+def _scratch(entry: str, dtype, device, c: int, nb: int):
+    """The partial sums (2, nb, c) and two integer counters of the one-launch
+    reductions of `entry` (B2: both; the given entries: the first of each),
+    kept per (entry, device, dtype, c, nb). The counters only grow, by nb
+    per launch each, so they stay valid across calls, CUDA-graph replays
+    and solves that alternate on one stream. Made outside any stream
+    capture, so that the counters start from zero on the device."""
+    key = (entry, device.index, dtype, c, nb)
+    s = _SCRATCH.get(key)
     if s is None:
         _require(not torch.cuda.is_current_stream_capturing(),
-                 "cg_update1: call it once before capturing it in a CUDA "
-                 "graph (its scratch is made on that first call)")
-        s = _CG1_SCRATCH[key] = (
+                 f"{entry}: call it once before capturing it in a CUDA "
+                 f"graph (its scratch is made on that first call)")
+        s = _SCRATCH[key] = (
             torch.empty((2, nb, c), dtype=dtype, device=device),
             torch.zeros((2,), dtype=torch.int64, device=device))
     return s
@@ -455,7 +496,7 @@ def cg_update1(rz, p, ap, x, r, rr_prev, thresh):
     _require(all(t.data_ptr() % 16 == 0 for t in (p, ap, x, r)),
              "cg_update1: vectors must be 16-byte aligned (16-byte loads)")
     nb = cg1_blocks(n, c, x.dtype, x.device)
-    partials, counters = _cg1_scratch(x.dtype, x.device, c, nb)
+    partials, counters = _scratch("cg_update1", x.dtype, x.device, c, nb)
     rr = torch.empty((c,), dtype=x.dtype, device=x.device)
     _launch("cg_update1", x.dtype, x.device, rz.data_ptr(),
             rr_prev.data_ptr(), thresh.data_ptr(), p.data_ptr(),
@@ -489,20 +530,25 @@ def cg_update2(rz_old, r, z, p, rr_prev, thresh):
 # The given entries: B2 and B3 on a rank's rows, from all-rank dots
 # ---------------------------------------------------------------------------
 
-def cg_dot_plain(a, b):
-    """Twin of cg_dot: the column dots a.b of (n, c) vectors."""
-    return (a * b).sum(0)
+def _into(out, value):
+    return value if out is None else out.copy_(value)
 
 
-def cg_update1_given_plain(pap, rz, p, ap, x, r, rr_prev, thresh):
+def cg_dot_plain(a, b, out=None):
+    """Twin of cg_dot: the column dots a.b of (n, c) vectors (into out when
+    given)."""
+    return _into(out, (a * b).sum(0))
+
+
+def cg_update1_given_plain(pap, rz, p, ap, x, r, rr_prev, thresh, out=None):
     """Twin of cg_update1_given: alpha = rz / pAp (pAp = 0 divides by 1) from
     the given pAp, 0 for frozen columns; x += alpha p and r -= alpha Ap in
-    place; returns r.r of these rows per column."""
+    place; returns r.r of these rows per column (into out when given)."""
     a = rz / torch.where(pap == 0, torch.ones_like(pap), pap)
     alpha = torch.where(rr_prev > thresh, a, torch.zeros_like(a))
     x.add_(alpha[None, :] * p)
     r.sub_(alpha[None, :] * ap)
-    return (r * r).sum(0)
+    return _into(out, (r * r).sum(0))
 
 
 def cg_update2_given_plain(rz, rz_old, z, p, rr_prev, thresh):
@@ -517,46 +563,70 @@ def _cg_cols(entry, c):
     _require(1 <= c <= CG_MAX_COLS, f"{entry}: c must be in 1..{CG_MAX_COLS}")
 
 
-def cg_dot(a, b):
-    """This rank's column dots a.b (c,) of (n, c) vectors: a fixed grid of
-    per-block partial sums (B3's first launch), reduced by one block in a
-    fixed order. The partials that the given entries are handed, summed
-    over the ranks."""
+def _check_out(entry, out, like, c):
+    if out is not None and not (out.shape == (c,) and out.dtype == like.dtype
+                                and out.device == like.device
+                                and out.is_contiguous()):
+        raise ValueError(f"{entry}: out must be a contiguous ({c},) tensor "
+                         f"of the inputs' dtype and device")
+
+
+def _given_launch(entry, vecs, *ptrs_and_n):
+    """Launches `entry` (cg_dot or cg_update1_given) on vecs' card over its
+    one-wave grid, with its kept scratch; ptrs_and_n: the C entry's
+    arguments before the scratch, then n."""
+    v = vecs[0]
+    n, c = v.shape
+    _cg_cols(entry, c)
+    if any(t.data_ptr() % 16 for t in vecs):
+        raise ValueError(f"{entry}: vectors must be 16-byte aligned "
+                         f"(16-byte loads)")
+    nb = cg_given_blocks(n, c, v.dtype, v.device)
+    partials, ticket = _scratch(entry, v.dtype, v.device, c, nb)
+    _launch(entry, v.dtype, v.device, *ptrs_and_n[:-1], partials.data_ptr(),
+            ticket.data_ptr(), ptrs_and_n[-1], c, nb)
+
+
+def cg_dot(a, b, out=None):
+    """This rank's column dots a.b (c,) of (n, c) vectors, in one launch: a
+    one-wave grid of 16-byte loads whose last block sums the blocks'
+    partials in a fixed order. The partials that the given entries are
+    handed, summed over the ranks. Into out ((c,), a row of a buffer say)
+    when given, else a new tensor."""
     global cg_dot_launches
     n, c = _check_cg("cg_dot", [a, b], [])
+    _check_out("cg_dot", out, a, c)
     if not _on_cuda([a, b], "cg_dot"):
-        return cg_dot_plain(a, b)
-    _cg_cols("cg_dot", c)
-    nb = cg_blocks(n)
-    partials = torch.empty((nb, c), dtype=a.dtype, device=a.device)
-    out = torch.empty((c,), dtype=a.dtype, device=a.device)
-    _launch("cg_dot", a.dtype, a.device, a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), partials.data_ptr(), n, c, nb)
+        return cg_dot_plain(a, b, out)
+    if out is None:
+        out = torch.empty((c,), dtype=a.dtype, device=a.device)
+    _given_launch("cg_dot", [a, b], a.data_ptr(), b.data_ptr(),
+                  out.data_ptr(), n)
     cg_dot_launches += 1
     return out
 
 
-def cg_update1_given(pap, rz, p, ap, x, r, rr_prev, thresh):
-    """B2 on this rank's rows with pAp given (summed over the ranks): x and
-    r updated in place; returns this rank's r.r (c,), to be summed over the
-    ranks. An update launch over B3's grid, then one block reduces its r.r
-    partials in a fixed order."""
+def cg_update1_given(pap, rz, p, ap, x, r, rr_prev, thresh, out=None):
+    """B2 on this rank's rows with pAp given (summed over the ranks), in one
+    launch: x and r updated in place; returns this rank's r.r (c,), to be
+    summed over the ranks, into out when given. cg_dot's grid, loads and
+    fixed-order sum."""
     global cg_update1_given_launches
     n, c = _check_cg("cg_update1_given", [p, ap, x, r],
                      [pap, rz, rr_prev, thresh])
+    _check_out("cg_update1_given", out, x, c)
     if not _on_cuda([pap, rz, p, ap, x, r, rr_prev, thresh],
                     "cg_update1_given"):
-        return cg_update1_given_plain(pap, rz, p, ap, x, r, rr_prev, thresh)
-    _cg_cols("cg_update1_given", c)
-    nb = cg_blocks(n)
-    partials = torch.empty((nb, c), dtype=x.dtype, device=x.device)
-    rr = torch.empty((c,), dtype=x.dtype, device=x.device)
-    _launch("cg_update1_given", x.dtype, x.device, pap.data_ptr(),
-            rz.data_ptr(), rr_prev.data_ptr(), thresh.data_ptr(),
-            p.data_ptr(), ap.data_ptr(), x.data_ptr(), r.data_ptr(),
-            rr.data_ptr(), partials.data_ptr(), n, c, nb)
+        return cg_update1_given_plain(pap, rz, p, ap, x, r, rr_prev, thresh,
+                                      out)
+    if out is None:
+        out = torch.empty((c,), dtype=x.dtype, device=x.device)
+    _given_launch("cg_update1_given", [p, ap, x, r], pap.data_ptr(),
+                  rz.data_ptr(), rr_prev.data_ptr(), thresh.data_ptr(),
+                  p.data_ptr(), ap.data_ptr(), x.data_ptr(), r.data_ptr(),
+                  out.data_ptr(), n)
     cg_update1_given_launches += 1
-    return rr
+    return out
 
 
 def cg_update2_given(rz, rz_old, z, p, rr_prev, thresh):

@@ -18,9 +18,9 @@ functions return ``(x, iterations, host_reads)``.
 Row-sharded CG (the counterpart of ``row_sharding``): ``pcg_fused`` with
 ``reduce`` (a function that sums a tensor over the ranks) takes the
 vectors, the operator and the preconditioner as this rank's rows, and sums
-the column dots over the ranks: one sum for pAp and one for the stacked
-{rz, rr} per iteration, as the JAX pcg's psums (one more at the start for
-the stacked {rz, rr, rhs.rhs}). Every rank then reads the same loop test.
+the column dots over the ranks: one sum for pAp and one for {rz, rr}
+(written into the rows of one buffer) per iteration, as the JAX pcg's
+psums (one more at the start for the stacked {rz, rr, rhs.rhs}). Every rank then reads the same loop test.
 The operator assembles the rows of p that it reads from other ranks
 itself. B2 and B3 run there through their given entries (their twins on
 CPU tensors).
@@ -190,18 +190,16 @@ def pcg_fused(operator: Callable, rhs, diag, tol: float = 1e-12,
     return x, it, reads
 
 
-def _summed(reduce, *cols):
-    """The (c,) column dots `cols` summed over the ranks in one collective
-    (stacked)."""
-    return tuple(reduce(torch.stack(cols)).unbind(0))
-
-
 def _pcg_given(operator, rhs, tol, max_iters, x, r, p, precond, reduce):
     """pcg_fused's loop on a rank's rows: the rank's column dots (cg_dot)
-    summed over the ranks, then B2 and B3 through their given entries."""
-    rz, rr, rhs2 = _summed(reduce, (r * p).sum(0), (r * r).sum(0),
-                           (rhs * rhs).sum(0))
+    summed over the ranks, then B2 and B3 through their given entries. rz
+    and this rank's rr are written into the rows of one (2, c) buffer and
+    summed in one collective; two such buffers alternate, so that the sums
+    of the last iteration stay intact while the next are written."""
+    rz, rr, rhs2 = reduce(torch.stack(((r * p).sum(0), (r * r).sum(0),
+                                       (rhs * rhs).sum(0)))).unbind(0)
     thresh = torch.clamp_min(rhs2, 1e-300) * (tol * tol)
+    sums = torch.empty((2, 2, x.shape[1]), dtype=x.dtype, device=x.device)
     it = reads = 0
     while it < max_iters:
         reads += 1
@@ -209,9 +207,11 @@ def _pcg_given(operator, rhs, tol, max_iters, x, r, p, precond, reduce):
             break
         Ap = operator(p)
         pAp = reduce(ck.cg_dot(p, Ap))
-        rr_part = ck.cg_update1_given(pAp, rz, p, Ap, x, r, rr, thresh)
+        buf = sums[it % 2]
+        ck.cg_update1_given(pAp, rz, p, Ap, x, r, rr, thresh, out=buf[1])
         z = precond(r)
-        rz_new, rr_new = _summed(reduce, ck.cg_dot(r, z), rr_part)
+        ck.cg_dot(r, z, out=buf[0])
+        rz_new, rr_new = reduce(buf).unbind(0)
         ck.cg_update2_given(rz_new, rz, z, p, rr, thresh)
         rz, rr = rz_new, rr_new
         it += 1

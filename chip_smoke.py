@@ -13,8 +13,10 @@ non-zero before the final result line):
      beside the kernel's bound; B1's indexed entry also against the chain
      it replaced (gather, relayout, plane entry); B2 called twice must give
      equal bits; the given entries of B2 and B3 and their dot pass
-     (cg_dot) at a rank's share of the main path's rows, equal bits on a
-     repeat;
+     (cg_dot) at a rank's share of the main path's rows over two and four
+     ranks and at ragged n, c = 1..4, equal bits on a repeat and, for
+     cg_dot and cg_update1_given, under CUDA-graph replay; both shares
+     timed;
   4. a small float64 wire-mesh solve on the CG path (group closest-point
      cache, reference > 20,000 triangles) on the GPU and on the CPU through
      the port: function values and solution must agree; then the same on
@@ -150,6 +152,7 @@ ERICSON_SHAPES = {"group fast path": (MAIN_Q, 6, 16),
 MAIN_T = 39808                 # the main path's triangle table (Morton-padded)
 MAIN_N = 230400                # CG vector rows at MaleTorso scale
 SHARD_N = MAIN_N // 2          # one of two ranks' rows (phase 13)
+QUARTER_N = MAIN_N // 4        # one of four ranks' rows (phase 14)
 # the kernels of the subgroup-cache path (phases 4 and 5), and of the flat
 # cache with cached (9, K, Q) candidates (phase 4, second solve)
 MAIN_PATH_KERNELS = ("ericson_idx", "cg_update1", "cg_update2")
@@ -647,91 +650,137 @@ def check_cg(ck, device, record, n_small):
                                 bound_by=by2, max_abs_err=worst2)
 
 
+def given_cases(ck, device):
+    """(n, c, dtype) of the given entries' checks: a rank's share of the
+    main path's rows over two and four ranks, ragged n (0, 1, 3, 81, 4,099,
+    70,001: partial last chunks) and an n with more 4-row chunks than the
+    card holds threads (the kernels' grid-stride loop), c = 1..4, float32
+    and float64."""
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        for cc in (1, 2, 3, 4):
+            most = ck.cg_given_blocks(1 << 40, cc, dtype, device)
+            loop_n = most * ck.CG1_THREADS * ck.CG1_ROWS + 5
+            out += [(nc, cc, dtype) for nc in
+                    (SHARD_N, QUARTER_N, 0, 1, 3, 81, 4099, 70001, loop_n)]
+    return out
+
+
 def check_cg_given(ck, device, record):
     """The given entries of B2 and B3 and their dot pass (cg_dot) against
-    their twins, with a frozen column and zero divisors, at a rank's share
-    of the main path's rows (230,400 / 2 = 115,200, c = 3) and at small and
-    ragged n, float32 and float64; each called twice must give equal bits.
-    Then timed at the shard's shape in f32 beside each bound (and cg_dot
-    beside torch.linalg.vecdot, the one PyTorch call that computes it)."""
-    n, c = SHARD_N, 3
+    their twins, with a frozen column and zero divisors, at given_cases'
+    shapes; each called twice must give equal bits, and cg_dot and
+    cg_update1_given, captured in a CUDA graph after those eager calls and
+    replayed twice, the eager call's bits. Then timed in f32, c = 3, at a
+    rank's share over two ranks (reported) and over four, beside each
+    bound (and cg_dot beside torch.linalg.vecdot, the one PyTorch call
+    that computes it)."""
     rtol = {torch.float64: 1e-12, torch.float32: 1e-3}
     worst = dict(cg_dot=0.0, cg_update1_given=0.0, cg_update2_given=0.0)
-    for dtype in (torch.float32, torch.float64):
-        for nc, cc in ((n, c), (81, 3), (70001, 4), (4099, 1), (0, 3)):
-            v, rz, rz_old, rr_prev, thresh = cg_inputs(nc, cc, dtype, device,
-                                                       nc + cc + 11)
-            pap = (v["p"] * v["ap"]).sum(0)
-            outs = []
-            for _ in range(2):
-                x, r, p = v["x"].clone(), v["r"].clone(), v["p"].clone()
-                d = ck.cg_dot(v["p"], v["ap"])
-                rr = ck.cg_update1_given(pap, rz, v["p"], v["ap"], x, r,
-                                         rr_prev, thresh)
-                ck.cg_update2_given(rz, rz_old, v["z"], p, rr_prev, thresh)
-                outs.append(dict(cg_dot=(d,), cg_update1_given=(x, r, rr),
-                                 cg_update2_given=(p,)))
+    cases = given_cases(ck, device)
+    for nc, cc, dtype in cases:
+        v, rz, rz_old, rr_prev, thresh = cg_inputs(nc, cc, dtype, device,
+                                                   nc + cc + 11)
+        pap = (v["p"] * v["ap"]).sum(0)
+        outs = []
+        for _ in range(2):
             x, r, p = v["x"].clone(), v["r"].clone(), v["p"].clone()
-            plain = dict(
-                cg_dot=(ck.cg_dot_plain(v["p"], v["ap"]),),
-                cg_update1_given=(x, r, ck.cg_update1_given_plain(
-                    pap, rz, v["p"], v["ap"], x, r, rr_prev, thresh)),
-                cg_update2_given=(p,))
-            ck.cg_update2_given_plain(rz, rz_old, v["z"], p, rr_prev, thresh)
+            d = ck.cg_dot(v["p"], v["ap"])
+            rr = ck.cg_update1_given(pap, rz, v["p"], v["ap"], x, r,
+                                     rr_prev, thresh)
+            ck.cg_update2_given(rz, rz_old, v["z"], p, rr_prev, thresh)
+            outs.append(dict(cg_dot=(d,), cg_update1_given=(x, r, rr),
+                             cg_update2_given=(p,)))
+        x, r, p = v["x"].clone(), v["r"].clone(), v["p"].clone()
+        plain = dict(
+            cg_dot=(ck.cg_dot_plain(v["p"], v["ap"]),),
+            cg_update1_given=(x, r, ck.cg_update1_given_plain(
+                pap, rz, v["p"], v["ap"], x, r, rr_prev, thresh)),
+            cg_update2_given=(p,))
+        ck.cg_update2_given_plain(rz, rz_old, v["z"], p, rr_prev, thresh)
+        gx, gr = v["x"].clone(), v["r"].clone()
+        gd, grr = rz.clone(), rz.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gx.copy_(v["x"])
+            gr.copy_(v["r"])
+            ck.cg_dot(v["p"], v["ap"], out=gd)
+            ck.cg_update1_given(pap, rz, v["p"], v["ap"], gx, gr, rr_prev,
+                                thresh, out=grr)
+        for _ in range(2):
+            graph.replay()
             torch.cuda.synchronize()
-            for name in worst:
-                check(all(torch.equal(a, b) for a, b in
-                          zip(outs[0][name], outs[1][name])),
-                      f"{name} n={nc} c={cc} {dtype}: two calls differ")
-                for i, (a, b) in enumerate(zip(outs[0][name], plain[name])):
-                    err = float((a - b).abs().max()) if a.numel() else 0.0
-                    # x, r and p element-wise at atol = rtol; the column
-                    # sums (cg_dot, rr) of nc terms of size ~1 also at an
-                    # atol of rtol * sqrt(nc), the size of a signed sum
-                    summed = (name, i) in (("cg_dot", 0),
-                                           ("cg_update1_given", 2))
-                    atol = rtol[dtype] * (max(nc, 1) ** 0.5 if summed else 1)
-                    check(torch.allclose(a, b, rtol=rtol[dtype], atol=atol),
-                          f"{name} n={nc} c={cc} {dtype}: max abs err {err}")
-                    if dtype == torch.float32:
-                        worst[name] = max(worst[name], err)
-            if cc > 1:
-                check(bool(torch.equal(outs[0]["cg_update1_given"][0][:, 1],
-                                       v["x"][:, 1])),
-                      "cg_update1_given: frozen column moved")
-    v, rz, rz_old, rr_prev, thresh = cg_inputs(n, c, torch.float32, device, 9)
-    x, r, p, ap, z = v["x"], v["r"], v["p"], v["ap"], v["z"]
-    pap = (p * ap).sum(0)
-    rz_old = (r * z).sum(0)           # beta ~ 1: repeated calls stay finite
-    w = 4
-    cases = {
-        "cg_dot": (lambda: ck.cg_dot(p, ap), lambda: ck.cg_dot_plain(p, ap),
-                   2 * n * c * w + c * w, 2 * n * c,
-                   lambda: torch.linalg.vecdot(p, ap, dim=0)),
-        "cg_update1_given": (
-            lambda: ck.cg_update1_given(pap, rz, p, ap, x, r, rr_prev,
-                                        thresh),
-            lambda: ck.cg_update1_given_plain(pap, rz, p, ap, x, r, rr_prev,
-                                              thresh),
-            6 * n * c * w + 5 * c * w, 6 * n * c, None),
-        "cg_update2_given": (
-            lambda: ck.cg_update2_given(rz_old, rz_old, z, p, rr_prev,
-                                        thresh),
-            lambda: ck.cg_update2_given_plain(rz_old, rz_old, z, p, rr_prev,
-                                              thresh),
-            3 * n * c * w + 4 * c * w, 2 * n * c, None)}
-    for name, (kern, twin, n_bytes, n_flops, lib) in cases.items():
-        ms, pl, ms_e, pl_e = time_pair(kern, twin)
-        lib_ms = device_ms(lib) if lib is not None else None
-        b, by = bound_ms(n_bytes, n_flops, torch.float32)
-        print(f"  {name} f32 n={n} c={c}: kernel {ms:.4f} ms, twin "
-              f"{pl:.4f} ms (device, CUDA graph); per eager call {ms_e:.4f} "
-              f"/ {pl_e:.4f} ms; bound {b:.4f} ms ({by})"
-              + (f"; torch.linalg.vecdot {lib_ms:.4f} ms" if lib else "")
-              + f"; repeats bit for bit, f32 max abs err vs twin "
-              f"{worst[name]:.3e}")
-        record[name] = dict(ms=ms, plain_ms=pl, bound_ms=b, bound_by=by,
-                            max_abs_err=worst[name], library_ms=lib_ms)
+            check(all(torch.equal(a, b) for a, b in
+                      zip((gd, gx, gr, grr), (outs[0]["cg_dot"][0],
+                                              *outs[0]["cg_update1_given"]))),
+                  f"cg_dot/cg_update1_given n={nc} c={cc} {dtype}: a CUDA "
+                  f"graph's replay differs from the eager call")
+        del graph
+        for name in worst:
+            check(all(torch.equal(a, b) for a, b in
+                      zip(outs[0][name], outs[1][name])),
+                  f"{name} n={nc} c={cc} {dtype}: two calls differ")
+            for i, (a, b) in enumerate(zip(outs[0][name], plain[name])):
+                err = float((a - b).abs().max()) if a.numel() else 0.0
+                # x, r and p element-wise at atol = rtol; the column
+                # sums (cg_dot, rr) of nc terms of size ~1 also at an
+                # atol of rtol * sqrt(nc), the size of a signed sum
+                summed = (name, i) in (("cg_dot", 0),
+                                       ("cg_update1_given", 2))
+                atol = rtol[dtype] * (max(nc, 1) ** 0.5 if summed else 1)
+                check(torch.allclose(a, b, rtol=rtol[dtype], atol=atol),
+                      f"{name} n={nc} c={cc} {dtype}: max abs err {err}")
+                if dtype == torch.float32:
+                    worst[name] = max(worst[name], err)
+        if cc > 1:
+            check(bool(torch.equal(outs[0]["cg_update1_given"][0][:, 1],
+                                   v["x"][:, 1])),
+                  "cg_update1_given: frozen column moved")
+    ns = sorted({nc for nc, _, _ in cases})
+    print(f"  cg_dot, cg_update1_given, cg_update2_given vs twins: "
+          f"{len(cases)} cases, c = 1..4, f32 and f64, n = "
+          f"{', '.join(map(str, ns))}: each repeats bit for bit, and the "
+          f"first two as CUDA-graph replays")
+    c, w = 3, 4
+    for n in (SHARD_N, QUARTER_N):
+        v, rz, rz_old, rr_prev, thresh = cg_inputs(n, c, torch.float32,
+                                                   device, 9)
+        x, r, p, ap, z = v["x"], v["r"], v["p"], v["ap"], v["z"]
+        pap = (p * ap).sum(0)
+        rz_old = (r * z).sum(0)       # beta ~ 1: repeated calls stay finite
+        timed = {
+            "cg_dot": (lambda: ck.cg_dot(p, ap),
+                       lambda: ck.cg_dot_plain(p, ap),
+                       2 * n * c * w + c * w, 2 * n * c,
+                       lambda: torch.linalg.vecdot(p, ap, dim=0)),
+            "cg_update1_given": (
+                lambda: ck.cg_update1_given(pap, rz, p, ap, x, r, rr_prev,
+                                            thresh),
+                lambda: ck.cg_update1_given_plain(pap, rz, p, ap, x, r,
+                                                  rr_prev, thresh),
+                6 * n * c * w + 5 * c * w, 6 * n * c, None),
+            "cg_update2_given": (
+                lambda: ck.cg_update2_given(rz_old, rz_old, z, p, rr_prev,
+                                            thresh),
+                lambda: ck.cg_update2_given_plain(rz_old, rz_old, z, p,
+                                                  rr_prev, thresh),
+                3 * n * c * w + 4 * c * w, 2 * n * c, None)}
+        for name, (kern, twin, n_bytes, n_flops, lib) in timed.items():
+            ms, pl, ms_e, pl_e = time_pair(kern, twin)
+            lib_ms = device_ms(lib) if lib is not None else None
+            b, by = bound_ms(n_bytes, n_flops, torch.float32)
+            print(f"  {name} f32 n={n} c={c} "
+                  f"({ck.cg_given_blocks(n, c, x.dtype, x.device)} blocks "
+                  f"for cg_dot and cg_update1_given): kernel {ms:.4f} ms, "
+                  f"twin {pl:.4f} ms (device, CUDA graph); per eager call "
+                  f"{ms_e:.4f} / {pl_e:.4f} ms; bound {b:.4f} ms ({by}, "
+                  f"{b / ms:.0%} of it)"
+                  + (f"; torch.linalg.vecdot {lib_ms:.4f} ms" if lib else "")
+                  + f"; f32 max abs err vs twin {worst[name]:.3e}")
+            if n == SHARD_N:
+                record[name] = dict(ms=ms, plain_ms=pl, bound_ms=b,
+                                    bound_by=by, max_abs_err=worst[name],
+                                    library_ms=lib_ms)
 
 
 # ---------------------------------------------------------------------------

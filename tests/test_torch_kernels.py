@@ -434,3 +434,154 @@ def test_cg_update1_on_card_twin_and_repeatable(cuda_device, n, c, dtype):
     tol = CG_TOL[dtype]
     for a, b in zip(outs[0], (xt, rt, rr_t)):
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# cg_dot and cg_update1_given: one launch each over a one-wave grid
+# ---------------------------------------------------------------------------
+
+GIVEN_NS = (0, 1, 3, 81, 4099, 70001, 57600, 115200)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_given_grid_fixed_and_within_chunks(c, monkeypatch):
+    """The grid of cg_dot and cg_update1_given is a function of (n, c) on a
+    card: the same on every call, at least 1 and at most the 4-row chunks
+    (and never more than the card holds at once, here a stand-in 3 blocks
+    per SM of 132)."""
+    most = 3 * 132
+    card = torch.device("cuda", 0)
+    for dtype in (torch.float32, torch.float64):
+        monkeypatch.setitem(ck._MAX_BLOCKS,
+                            ("cg_given_max_blocks", 0, dtype, c), most)
+        for n in GIVEN_NS + (10**7,):
+            nb = ck.cg_given_blocks(n, c, dtype, card)
+            chunks = -(-n // ck.CG1_ROWS)
+            assert nb == ck.cg_given_blocks(n, c, dtype, card)
+            assert nb == ck.one_wave_blocks(n, most)
+            assert 1 <= nb <= max(1, chunks) and nb <= most
+            # one chunk per thread while the card holds that many threads
+            if chunks <= most * ck.CG1_THREADS:
+                assert nb * ck.CG1_THREADS >= chunks
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_given_out_argument_twins(dtype):
+    """cg_dot and cg_update1_given write into `out` (rows of one (2, c)
+    buffer, as the sharded CG hands them) the bits they return without
+    it, and return it."""
+    v, rz, rr_prev, thresh = _cg_cols_case(dtype, 3, n=500)
+    t = {k: torch.from_numpy(a) for k, a in v.items()}
+    rz, rr_prev, thresh = (torch.from_numpy(a) for a in (rz, rr_prev, thresh))
+    pap = ck.cg_dot(t["p"], t["ap"])
+    buf = torch.full((2, 3), float("nan"), dtype=t["x"].dtype)
+    assert ck.cg_dot(t["p"], t["ap"], out=buf[0]).data_ptr() == buf.data_ptr()
+    assert torch.equal(buf[0], pap)
+    x1, r1, x2, r2 = (t[k].clone() for k in ("x", "r", "x", "r"))
+    rr = ck.cg_update1_given(pap, rz, t["p"], t["ap"], x1, r1, rr_prev, thresh)
+    got = ck.cg_update1_given(pap, rz, t["p"], t["ap"], x2, r2, rr_prev,
+                              thresh, out=buf[1])
+    assert got.data_ptr() == buf[1].data_ptr()
+    for a, b in [(buf[1], rr), (x1, x2), (r1, r2)]:
+        assert torch.equal(a, b)
+
+
+def test_given_wrappers_validate_inputs():
+    """cg_dot and cg_update1_given raise on mismatched shapes, on an `out`
+    that is not a contiguous (c,) tensor of the inputs' dtype, and on a
+    device with no kernel."""
+    p = torch.zeros((8, 3), dtype=torch.float64)
+    s = torch.zeros(3, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        ck.cg_dot(p, p[:4])
+    with pytest.raises(ValueError):
+        ck.cg_dot(p, p.float())
+    with pytest.raises(ValueError):
+        ck.cg_update1_given(s[:2], s, p, p, p, p, s, s)
+    for bad in (torch.zeros(4, dtype=torch.float64), s.float(),
+                torch.zeros((3, 2), dtype=torch.float64)[:, 0]):
+        with pytest.raises(ValueError, match="out must be"):
+            ck.cg_dot(p, p, out=bad)
+        with pytest.raises(ValueError, match="out must be"):
+            ck.cg_update1_given(s, s, p, p, p, p, s, s, out=bad)
+    meta = torch.zeros((8, 3), dtype=torch.float64, device="meta")
+    sm = torch.zeros(3, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ck.cg_dot(meta, meta, out=sm)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ck.cg_update1_given(sm, sm, meta, meta, meta, meta, sm, sm)
+
+
+def _given_on_card(dev, dtype, c, n, seed):
+    v, rz, rr_prev, thresh = _cg_cols_case(dtype, c, n=n, seed=seed)
+    t = {k: torch.from_numpy(a).to(dev) for k, a in v.items()}
+    rz, rr_prev, thresh = (torch.from_numpy(a).to(dev)
+                           for a in (rz, rr_prev, thresh))
+    return t, (t["p"] * t["ap"]).sum(0), rz, rr_prev, thresh
+
+
+def _given_calls(t, pap, rz, rr_prev, thresh):
+    """cg_dot(p, Ap) and cg_update1_given from fresh copies of x, r:
+    (dot, x, r, rr)."""
+    x, r = t["x"].clone(), t["r"].clone()
+    d = ck.cg_dot(t["p"], t["ap"])
+    rr = ck.cg_update1_given(pap, rz, t["p"], t["ap"], x, r, rr_prev, thresh)
+    return d, x, r, rr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_given_one_launch_on_card(cuda_device, c, dtype):
+    """cg_dot and cg_update1_given on the card at ragged n and a rank's
+    shares of 230,400 rows: against their twins, bit-equal on a repeat and
+    under CUDA-graph replay, one counted launch per call."""
+    tol = CG_TOL[dtype]
+    for n in GIVEN_NS:
+        t, pap, rz, rr_prev, thresh = _given_on_card(cuda_device, dtype, c,
+                                                     n, seed=n + c)
+        before = ck.launch_counts()
+        first = _given_calls(t, pap, rz, rr_prev, thresh)
+        after = ck.launch_counts()
+        assert after["cg_dot"] == before["cg_dot"] + 1
+        assert after["cg_update1_given"] == before["cg_update1_given"] + 1
+        second = _given_calls(t, pap, rz, rr_prev, thresh)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        x, r = t["x"].clone(), t["r"].clone()
+        d = ck.cg_dot_plain(t["p"], t["ap"])
+        rr = ck.cg_update1_given_plain(pap, rz, t["p"], t["ap"], x, r,
+                                       rr_prev, thresh)
+        # the column sums (n terms of size ~1) also at atol tol * sqrt(n)
+        for i, (a, b) in enumerate(zip(first, (d, x, r, rr))):
+            atol = tol * (max(n, 1) ** 0.5 if i in (0, 3) else 1)
+            torch.testing.assert_close(a, b, rtol=tol, atol=atol)
+        gx, gr = t["x"].clone(), t["r"].clone()
+        gd, grr = rz.clone(), rz.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gx.copy_(t["x"])
+            gr.copy_(t["r"])
+            ck.cg_dot(t["p"], t["ap"], out=gd)
+            ck.cg_update1_given(pap, rz, t["p"], t["ap"], gx, gr, rr_prev,
+                                thresh, out=grr)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b)
+                       for a, b in zip((gd, gx, gr, grr), first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_given_two_sizes_alternate_on_card(cuda_device, dtype):
+    """Two n whose grids differ, called in turns on one stream: each keeps
+    its own bits (the scratch is kept per grid size)."""
+    sizes = (115200, 4099)
+    cases = [_given_on_card(cuda_device, dtype, 3, n, seed=n) for n in sizes]
+    x = cases[0][0]["x"]
+    assert len({ck.cg_given_blocks(n, 3, x.dtype, x.device)
+                for n in sizes}) == 2
+    runs = [[_given_calls(*case) for case in cases] for _ in range(3)]
+    for k in range(len(sizes)):
+        for later in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(runs[0][k], later[k]))
