@@ -9,7 +9,8 @@ replace the JAX package's three Pallas kernels
   entry takes the candT cache's (9, K, Q) layout.
 * B2 ``cg_update1`` — the post-matvec half of a CG iteration, one launch
   (replaces ``_cg_k1``).
-* B3 ``cg_update2`` — the post-preconditioner half (replaces ``_cg_k2``).
+* B3 ``cg_update2`` — the post-preconditioner half, one launch (replaces
+  ``_cg_k2``).
 * The given entries of B2 and B3, for a CG whose rows are split over ranks
   (the sharded geometry solve): ``cg_dot`` (this rank's column dots, in a
   fixed order), ``cg_update1_given`` (B2's update from an all-rank pAp; it
@@ -35,15 +36,16 @@ Launch counters (``ericson_launches`` for the plane entry,
 ``ericson_idx_launches`` for the indexed entry, ``cg_update1_launches``,
 ``cg_update2_launches``, ``cg_dot_launches``, ``cg_update1_given_launches``,
 ``cg_update2_given_launches``) count one per wrapper call that launched its
-kernel, however many CUDA launches that call takes.
+kernel (one CUDA launch each).
 
 Cached state, per process: B1's padded copy of each triangle table (a few
 tables, rebuilt when the table changes in place; made on the table's card)
-and the grid limits and scratch of B2, ``cg_dot`` and ``cg_update1_given``
-(partial sums and counters, one set per entry, card, dtype, c and grid
-size; calls that share a set must be ordered on one stream, as the
-solver's are). The scratch is made on a set's first call, which must not
-be under CUDA-graph capture.
+and the grid limits and scratch of B2, B3, ``cg_dot`` and
+``cg_update1_given`` (partial sums and counters, one set per entry, card,
+dtype, c and grid size; calls that share a set must be ordered on one
+stream, as the solver's are). The scratch is made on a set's first call,
+which must not be under CUDA-graph capture. Every CG entry moves 16-byte
+words and raises on vectors that do not start on a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -85,18 +87,22 @@ _ARGTYPES = {
     "ericson_candidates_idx": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
     "cg_update1": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "cg_update1_max_blocks": [_I, _I, _P],
-    "cg_update2": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "cg_update2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "cg_update2_max_blocks": [_I, _I, _P],
     "cg_dot": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "cg_update1_given": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
                          _I, _P],
     "cg_given_max_blocks": [_I, _I, _P],
     "cg_update2_given": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "cg_update2_given_max_blocks": [_I, _I, _P],
 }
 _LIB_OF = {"ericson_candidates": "ericson", "ericson_candidates_idx": "ericson",
            "cg_update1": "cg_update", "cg_update1_max_blocks": "cg_update",
-           "cg_update2": "cg_update", "cg_dot": "cg_update",
+           "cg_update2": "cg_update", "cg_update2_max_blocks": "cg_update",
+           "cg_dot": "cg_update",
            "cg_update1_given": "cg_update", "cg_update2_given": "cg_update",
-           "cg_given_max_blocks": "cg_update"}
+           "cg_given_max_blocks": "cg_update",
+           "cg_update2_given_max_blocks": "cg_update"}
 # B1: lanes per query are raised (powers of two up to 32) until about this
 # many threads are in flight: four 256-thread blocks on each of 132 SMs.
 ERICSON_TARGET_THREADS = 131072
@@ -104,14 +110,15 @@ ERICSON_ROW_WORDS = 12       # padded table row: kRowWords in ericson.cu
 _TABLES: list = []           # [(table, its version, padded copy)], newest last
 _MAX_TABLES = 4
 # CG reductions: per-block partial sums over a fixed grid, reduced in a fixed
-# order (deterministic; no float atomics). B3's grid:
-CG_THREADS = 256
-CG_MAX_BLOCKS = 528          # 4 blocks on each of the H100's 132 SMs
+# order (deterministic; no float atomics).
 CG_MAX_COLS = 4
-# B2's grid and that of cg_dot and cg_update1_given: 256-thread blocks of
-# 4 rows a thread (kThreads1, kThreadsG and the 4-row chunks of
-# cg_update.cu), no more than the card holds at once.
+# The grids of B2, B3 and the given entries: blocks of 4 rows a thread
+# (the 4-row chunks of cg_update.cu), no more than the card holds at once;
+# threads a block: B2, cg_dot and cg_update1_given (kThreads1, kThreadsG),
+# B3 (kThreads2), cg_update2_given (kThreadsG2).
 CG1_THREADS = 256
+CG2_THREADS = 512
+CG2_GIVEN_THREADS = 128
 CG1_ROWS = 4
 _MAX_BLOCKS: dict = {}       # (entry, card index, dtype, c) -> blocks
 _SCRATCH: dict = {}          # (entry, card index, dtype, c, blocks) -> tensors
@@ -405,12 +412,6 @@ def cg_update2_plain(rz_old, r, z, p, rr_prev, thresh):
     return rz
 
 
-def cg_blocks(n: int) -> int:
-    """Grid size of the CG kernels for n rows (fixed per n, so the partial
-    sums and hence the reduction order are fixed)."""
-    return max(1, min(CG_MAX_BLOCKS, -(-n // CG_THREADS)))
-
-
 def _check_cg(entry, vecs, scalars):
     n_c = vecs[0].shape
     if len(n_c) != 2:
@@ -441,11 +442,11 @@ def _resident_blocks(entry: str, c: int, dtype, device) -> int:
     return most
 
 
-def one_wave_blocks(n: int, most: int) -> int:
-    """A grid for n rows of 4-row chunks, CG1_THREADS chunks a block: enough
+def one_wave_blocks(n: int, most: int, threads: int = CG1_THREADS) -> int:
+    """A grid for n rows of 4-row chunks, `threads` chunks a block: enough
     blocks for a chunk per thread, but no more than `most` (what the card
     holds at once), and at least one."""
-    return max(1, min(most, -(-n // (CG1_ROWS * CG1_THREADS))))
+    return max(1, min(most, -(-n // (CG1_ROWS * threads))))
 
 
 def cg1_blocks(n: int, c: int, dtype, device) -> int:
@@ -456,6 +457,13 @@ def cg1_blocks(n: int, c: int, dtype, device) -> int:
         n, _resident_blocks("cg_update1_max_blocks", c, dtype, device))
 
 
+def cg2_blocks(n: int, c: int, dtype, device) -> int:
+    """B3's grid for n rows: B2's rule over B3's blocks and occupancy."""
+    return one_wave_blocks(
+        n, _resident_blocks("cg_update2_max_blocks", c, dtype, device),
+        CG2_THREADS)
+
+
 def cg_given_blocks(n: int, c: int, dtype, device) -> int:
     """The grid of cg_dot and cg_update1_given for n rows: one wave, as
     B2's, of their own kernels. Fixed for a card, dtype, c and n, so the
@@ -464,12 +472,19 @@ def cg_given_blocks(n: int, c: int, dtype, device) -> int:
         n, _resident_blocks("cg_given_max_blocks", c, dtype, device))
 
 
+def cg2_given_blocks(n: int, c: int, dtype, device) -> int:
+    """cg_update2_given's grid for n rows: one wave of its own blocks."""
+    return one_wave_blocks(
+        n, _resident_blocks("cg_update2_given_max_blocks", c, dtype, device),
+        CG2_GIVEN_THREADS)
+
+
 def _scratch(entry: str, dtype, device, c: int, nb: int):
     """The partial sums (2, nb, c) and two integer counters of the one-launch
-    reductions of `entry` (B2: both; the given entries: the first of each),
-    kept per (entry, device, dtype, c, nb). The counters only grow, by nb
-    per launch each, so they stay valid across calls, CUDA-graph replays
-    and solves that alternate on one stream. Made outside any stream
+    reductions of `entry` (B2: both; B3 and the given entries: the first of
+    each), kept per (entry, device, dtype, c, nb). The counters only grow,
+    by nb per launch each, so they stay valid across calls, CUDA-graph
+    replays and solves that alternate on one stream. Made outside any stream
     capture, so that the counters start from zero on the device."""
     key = (entry, device.index, dtype, c, nb)
     s = _SCRATCH.get(key)
@@ -483,6 +498,14 @@ def _scratch(entry: str, dtype, device, c: int, nb: int):
     return s
 
 
+def _aligned(entry, vecs):
+    """Raises unless every vector starts on a 16-byte boundary (the
+    kernels' 16-byte loads and stores)."""
+    if any(t.data_ptr() % 16 for t in vecs):
+        raise ValueError(f"{entry}: vectors must be 16-byte aligned "
+                         f"(16-byte loads)")
+
+
 def cg_update1(rz, p, ap, x, r, rr_prev, thresh):
     """B2: the post-matvec half of a CG iteration on (n, c) vectors
     (counterpart of pallas_kernels.cg_update1 without the band layout), in
@@ -493,8 +516,7 @@ def cg_update1(rz, p, ap, x, r, rr_prev, thresh):
     if not _on_cuda([rz, p, ap, x, r, rr_prev, thresh], "cg_update1"):
         return cg_update1_plain(rz, p, ap, x, r, rr_prev, thresh)
     _require(1 <= c <= CG_MAX_COLS, f"cg_update1: c must be in 1..{CG_MAX_COLS}")
-    _require(all(t.data_ptr() % 16 == 0 for t in (p, ap, x, r)),
-             "cg_update1: vectors must be 16-byte aligned (16-byte loads)")
+    _aligned("cg_update1", (p, ap, x, r))
     nb = cg1_blocks(n, c, x.dtype, x.device)
     partials, counters = _scratch("cg_update1", x.dtype, x.device, c, nb)
     rr = torch.empty((c,), dtype=x.dtype, device=x.device)
@@ -508,20 +530,21 @@ def cg_update1(rz, p, ap, x, r, rr_prev, thresh):
 
 def cg_update2(rz_old, r, z, p, rr_prev, thresh):
     """B3: the post-preconditioner half of a CG iteration on (n, c) vectors
-    (counterpart of pallas_kernels.cg_update2). Updates p in place; returns
-    rz (c,)."""
+    (counterpart of pallas_kernels.cg_update2), in one launch. Updates p in
+    place; returns rz (c,)."""
     global cg_update2_launches
     n, c = _check_cg("cg_update2", [r, z, p], [rz_old, rr_prev, thresh])
     if not _on_cuda([rz_old, r, z, p, rr_prev, thresh], "cg_update2"):
         return cg_update2_plain(rz_old, r, z, p, rr_prev, thresh)
     _require(1 <= c <= CG_MAX_COLS, f"cg_update2: c must be in 1..{CG_MAX_COLS}")
-    nb = cg_blocks(n)
-    partials = torch.empty((nb, c), dtype=p.dtype, device=p.device)
+    _aligned("cg_update2", (r, z, p))
+    nb = cg2_blocks(n, c, p.dtype, p.device)
+    partials, counters = _scratch("cg_update2", p.dtype, p.device, c, nb)
     rz = torch.empty((c,), dtype=p.dtype, device=p.device)
     _launch("cg_update2", p.dtype, p.device, rz_old.data_ptr(),
             rr_prev.data_ptr(), thresh.data_ptr(), r.data_ptr(),
             z.data_ptr(), p.data_ptr(), rz.data_ptr(), partials.data_ptr(),
-            n, c, nb)
+            counters.data_ptr(), n, c, nb)
     cg_update2_launches += 1
     return rz
 
@@ -578,9 +601,7 @@ def _given_launch(entry, vecs, *ptrs_and_n):
     v = vecs[0]
     n, c = v.shape
     _cg_cols(entry, c)
-    if any(t.data_ptr() % 16 for t in vecs):
-        raise ValueError(f"{entry}: vectors must be 16-byte aligned "
-                         f"(16-byte loads)")
+    _aligned(entry, vecs)
     nb = cg_given_blocks(n, c, v.dtype, v.device)
     partials, ticket = _scratch(entry, v.dtype, v.device, c, nb)
     _launch(entry, v.dtype, v.device, *ptrs_and_n[:-1], partials.data_ptr(),
@@ -631,13 +652,16 @@ def cg_update1_given(pap, rz, p, ap, x, r, rr_prev, thresh, out=None):
 
 def cg_update2_given(rz, rz_old, z, p, rr_prev, thresh):
     """B3 on this rank's rows with rz_new given (summed over the ranks):
-    p = z + beta p in place, one launch."""
+    p = z + beta p in place, one launch over a one-wave grid (no
+    reduction, so no scratch)."""
     global cg_update2_given_launches
     n, c = _check_cg("cg_update2_given", [z, p], [rz, rz_old, rr_prev, thresh])
     if not _on_cuda([rz, rz_old, z, p, rr_prev, thresh], "cg_update2_given"):
         return cg_update2_given_plain(rz, rz_old, z, p, rr_prev, thresh)
     _cg_cols("cg_update2_given", c)
+    _aligned("cg_update2_given", (z, p))
     _launch("cg_update2_given", p.dtype, p.device, rz.data_ptr(),
             rz_old.data_ptr(), rr_prev.data_ptr(), thresh.data_ptr(),
-            z.data_ptr(), p.data_ptr(), n, c, cg_blocks(n))
+            z.data_ptr(), p.data_ptr(), n, c,
+            cg2_given_blocks(n, c, p.dtype, p.device))
     cg_update2_given_launches += 1

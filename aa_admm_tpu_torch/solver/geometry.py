@@ -200,6 +200,13 @@ def _own(system, v):
     return v if sh is None else v[sh.lo:sh.hi]
 
 
+def _aligned(v):
+    """v, or a copy of it when it does not start on a 16-byte boundary: the
+    CG kernels move 16-byte words, and a rank's rows of a ragged split may
+    start anywhere (41 rows of 3 floats end at byte 492)."""
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
 def _placed(system, v):
     """v (this rank's rows) in a zero-filled full-length buffer, a partial
     whose sum over the ranks is the full vector; v itself for one rank."""
@@ -248,15 +255,7 @@ def _solve_x(system: GeometrySystem, z_hard, u, z_soft, x_warm=None):
             return system.ell.apply(_full(system, v))
     else:
         def operator(v):
-            v = _full(system, v)
-            sh = torch.zeros_like(v)
-            for b in system.hard:
-                sh = sh + b.scatter(b.transform(v), system.n_verts)
-            out = system.rho * sh
-            for b in system.soft:
-                t = b.transform(v)
-                out = out + b.scatter(_w2(b, t) * t, system.n_verts)
-            return _own(system, _reduce(system, out + _reg_apply(system, v)))
+            return _matrix_free(system, v)
 
     reduce = _reducer(system)
     precond = None
@@ -266,6 +265,23 @@ def _solve_x(system: GeometrySystem, z_hard, u, z_soft, x_warm=None):
     return pcg_fused(operator, rhs, system.precond_diag, tol=system.cg_tol,
                      max_iters=system.cg_max_iters, x0=x_warm,
                      precond=precond, reduce=reduce)
+
+
+def _matrix_free(system, v):
+    """A v without a matrix, over the system's constraint batches and
+    regularization rows. v and the result are this rank's rows of a sharded
+    system (its rows of the summed partials, copied when that view is not
+    16-byte aligned); the whole vector on one rank."""
+    v = _full(system, v)
+    sh = torch.zeros_like(v)
+    for b in system.hard:
+        sh = sh + b.scatter(b.transform(v), system.n_verts)
+    out = system.rho * sh
+    for b in system.soft:
+        t = b.transform(v)
+        out = out + b.scatter(_w2(b, t) * t, system.n_verts)
+    out = _reduce(system, out + _reg_apply(system, v))
+    return out if system.shard is None else _aligned(_own(system, out))
 
 
 def _reg_apply(system, v):

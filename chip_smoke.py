@@ -6,17 +6,20 @@ Phases (each prints one line with its seconds; any failed check exits
 non-zero before the final result line):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from aa_admm_tpu_torch/csrc (one nvcc each, in
-     parallel);
+     parallel), and beside them the kernels that B3 and cg_update2_given
+     replaced with the floor kernels (tools/port_cg_given_variants.cu);
   3. each kernel against its plain torch twin on the card, float32 and
      float64, at the CPU tests' shapes and at the main path's shapes; device
      times of kernel and twin (CUDA-graph replays between CUDA events)
      beside the kernel's bound; B1's indexed entry also against the chain
-     it replaced (gather, relayout, plane entry); B2 called twice must give
-     equal bits; the given entries of B2 and B3 and their dot pass
-     (cg_dot) at a rank's share of the main path's rows over two and four
-     ranks and at ragged n, c = 1..4, equal bits on a repeat and, for
-     cg_dot and cg_update1_given, under CUDA-graph replay; both shares
-     timed;
+     it replaced (gather, relayout, plane entry); B2 and B3 at c = 1..4 and
+     four n, equal bits on a repeat and under CUDA-graph replay; the given
+     entries of B2 and B3 and their dot pass (cg_dot) at a rank's share of
+     the main path's rows over two and four ranks and at ragged n, c =
+     1..4, equal bits on a repeat and under CUDA-graph replay; both shares
+     timed; B3 and cg_update2_given also in turns against the kernels they
+     replaced and beside the floor (an empty kernel over the same grid, one
+     pass over the same bytes);
   4. a small float64 wire-mesh solve on the CG path (group closest-point
      cache, reference > 20,000 triangles) on the GPU and on the CPU through
      the port: function values and solution must agree; then the same on
@@ -163,6 +166,11 @@ SMALL_N_REF, CANDT_N_REF = 102, 60     # 20,402 and 6,962 triangles
 PLAN_Q, PLAN_K, PLAN_T = 2401, 48, 9800
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "beams_step1_residual_no_cpp.txt")
+# the kernels that B3 and cg_update2_given replaced and the floor kernels
+# (phase 3 times them beside the package's), appended to cg_update.cu
+VARIANTS_CU = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", "port_cg_given_variants.cu")
+OLD_MAX_BLOCKS = 528           # the replaced kernels' grid: 4 blocks an SM
 
 T0 = time.perf_counter()
 
@@ -234,6 +242,89 @@ def bound_ms(n_bytes, n_flops, dtype):
     t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, n_flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def old_blocks(n):
+    """The grid of the replaced CG kernels for n rows: a row a thread, 256
+    a block, at most OLD_MAX_BLOCKS."""
+    return max(1, min(OLD_MAX_BLOCKS, -(-n // 256)))
+
+
+def start_variants_build(ck, name="variants", text=None):
+    """Starts nvcc (the package's flags and -Xptxas -v) on `text`, by
+    default aa_admm_tpu_torch/csrc/cg_update.cu with VARIANTS_CU appended,
+    into the build directory's variants/; returns a function that waits for
+    it and returns (CDLL, nvcc's output), or raises if nvcc failed."""
+    import ctypes
+    out_dir = ck.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if text is None:
+        text = ((ck.CSRC_DIR / "cg_update.cu").read_text() + "\n"
+                + open(VARIANTS_CU).read())
+    cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
+    cu.write_text(text)
+    proc = subprocess.Popen(
+        [ck._nvcc(), *ck.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so),
+         str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+    def finish():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        if not hasattr(lib, "floor_empty_f32"):      # an edited package
+            return lib, log
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for entry, types in {
+                "old_cg_update2_f32": [P] * 8 + [LL, I, P],
+                "old_cg_update2_given_f32": [P] * 6 + [LL, I, P],
+                "floor_empty_f32": [I, I, P],
+                "floor_pass_f32": [P, P, P, LL, I, I, P]}.items():
+            f = getattr(lib, entry)
+            f.argtypes, f.restype = types, I
+        return lib, log
+    return finish
+
+
+def variants_calls(ck, lib, n, c, v, rz_old, rr_prev, thresh, grid,
+                   threads):
+    """Calls on one set of f32, c = 3 inputs (v: r, z and p; p updated in
+    place): the replaced B3 (two launches) and cg_update2_given, an empty
+    kernel over `grid` blocks, and one pass of 16-byte chunks over r, z
+    and p (B3's bytes) and over z and p (cg_update2_given's), a thread per
+    chunk; `threads` a block in these three."""
+    rz = torch.empty(c, device=v["p"].device)
+    part = torch.empty((OLD_MAX_BLOCKS, c), device=v["p"].device)
+    nb_old, nb_pass = old_blocks(n), max(1, -(-n // (4 * threads)))
+    r, z, p = (v[k].data_ptr() for k in ("r", "z", "p"))
+
+    def go(entry, *args):
+        ck._check(getattr(lib, entry)(
+            *args, torch.cuda.current_stream().cuda_stream), entry)
+    return {
+        "old cg_update2": lambda: go(
+            "old_cg_update2_f32", rz_old.data_ptr(), rr_prev.data_ptr(),
+            thresh.data_ptr(), r, z, p, rz.data_ptr(), part.data_ptr(), n,
+            nb_old),
+        "old cg_update2_given": lambda: go(
+            "old_cg_update2_given_f32", rz_old.data_ptr(), rz_old.data_ptr(),
+            rr_prev.data_ptr(), thresh.data_ptr(), z, p, n, nb_old),
+        "empty kernel": lambda: go("floor_empty_f32", grid, threads),
+        "pass over r, z, p": lambda: go("floor_pass_f32", r, z, p, n,
+                                         nb_pass, threads),
+        "pass over z, p": lambda: go("floor_pass_f32", None, z, p, n,
+                                      nb_pass, threads)}
+
+
+def in_turns(calls, order, iters=20, reps=10):
+    """{name: [device ms, ...]} of calls timed by device_ms in `order`
+    (names may repeat: old, new, new, old)."""
+    out = {}
+    for name in order:
+        out.setdefault(name, []).append(
+            device_ms(calls[name], iters=iters, reps=reps))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -568,13 +659,62 @@ def cg_inputs(n, c, dtype, device, seed):
     return v, rz, rz_old, rr_prev, thresh
 
 
-def check_cg(ck, device, record, n_small):
+def cg_case_bits(ck, nc, cc, dtype, device, tol):
+    """B2 and B3 at n = nc, c = cc: twice on the same inputs (equal bits),
+    once captured in a CUDA graph and replayed twice (the eager bits), and
+    against their twins. Returns the f32 max abs errors (B2's, B3's)."""
+    v, rz, rz_old, rr_prev, thresh = cg_inputs(nc, cc, dtype, device,
+                                               nc + cc)
+
+    def calls(x, r, p):
+        rr = ck.cg_update1(rz, v["p"], v["ap"], x, r, rr_prev, thresh)
+        rzn = ck.cg_update2(rz_old, v["r"], v["z"], p, rr_prev, thresh)
+        return x, r, rr, p, rzn
+    outs = [calls(v["x"].clone(), v["r"].clone(), v["p"].clone())
+            for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*outs)),
+          f"cg_update1/2 n={nc} c={cc} {dtype}: two calls differ")
+    gx, gr, gp = v["x"].clone(), v["r"].clone(), v["p"].clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gx.copy_(v["x"])
+        gr.copy_(v["r"])
+        gp.copy_(v["p"])
+        got = calls(gx, gr, gp)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, outs[0])),
+              f"cg_update1/2 n={nc} c={cc} {dtype}: a CUDA graph's replay "
+              f"differs from the eager call")
+    del graph
+    x, r, p = v["x"].clone(), v["r"].clone(), v["p"].clone()
+    rr = ck.cg_update1_plain(rz, v["p"], v["ap"], x, r, rr_prev, thresh)
+    rzn = ck.cg_update2_plain(rz_old, v["r"], v["z"], p, rr_prev, thresh)
+    errs = [0.0, 0.0]
+    for i, (name, a, b) in enumerate(zip(("x", "r", "rr", "p", "rz"),
+                                         outs[0], (x, r, rr, p, rzn))):
+        err = float((a - b).abs().max())
+        # rz, a signed sum of nc terms of size ~1, also at an atol of
+        # tol * sqrt(nc), the size of such a sum
+        atol = tol * (nc ** 0.5 if name == "rz" else 1)
+        check(torch.allclose(a, b, rtol=tol, atol=atol),
+              f"cg n={nc} c={cc} {dtype}: {name} err {err}")
+        errs[i >= 3] = max(errs[i >= 3], err)
+    return errs
+
+
+def check_cg(ck, device, record, n_small, variants):
     """B2/B3 vs twins with a frozen column and zero divisors (pAp = 0,
-    rz_old = 0): at n=230,400, c=3 and, for B2, at c = 1..4 on the small
-    scene's n, an n that is no multiple of the block size, n=230,400 (p
-    and Ap kept in registers) and n=300,001 (too many rows for that: read
-    again); B2 called twice on the same inputs must give equal bits. Then
-    both timed at n=230,400, c=3."""
+    rz_old = 0): at n=230,400, c=3 and at c = 1..4 on the small scene's n,
+    an n that is no multiple of the block size, n=230,400 (B2 keeps p and
+    Ap in registers; B3 has a chunk a thread), n=300,001 (B2 reads them
+    again) and n past one and past two chunks a thread of B3's grid (two
+    chunks unrolled, then its grid-stride loops); each called twice on the same inputs must give equal bits, and
+    replayed from a CUDA graph the eager call's. Then both timed at
+    n=230,400, c=3, B3 in turns against the two launches it replaced and
+    beside the floor: an empty kernel over its grid and one pass over r, z
+    and p (`variants`, the CDLL of start_variants_build)."""
     n, c = MAIN_N, 3
     rtol = {torch.float64: 1e-12, torch.float32: 1e-3}
     worst1 = worst2 = 0.0
@@ -602,48 +742,57 @@ def check_cg(ck, device, record, n_small):
                     worst2 = max(worst2, err)
         check(bool(torch.equal(xk[:, 1], v["x"][:, 1])),
               "cg frozen column moved")
-        for nc in (n_small, 70001, MAIN_N, 300001):
-            for cc in (1, 2, 3, 4):
-                v, rz, _, rr_prev, thresh = cg_inputs(nc, cc, dtype, device,
-                                                      nc + cc)
-                outs = []
-                for _ in range(2):
-                    x, r = v["x"].clone(), v["r"].clone()
-                    rr = ck.cg_update1(rz, v["p"], v["ap"], x, r, rr_prev,
-                                       thresh)
-                    outs.append((x, r, rr))
-                x, r = v["x"].clone(), v["r"].clone()
-                rr = ck.cg_update1_plain(rz, v["p"], v["ap"], x, r, rr_prev,
-                                         thresh)
-                check(all(torch.equal(a, b) for a, b in zip(*outs)),
-                      f"cg_update1 n={nc} c={cc} {dtype}: two calls differ")
-                for name, a, b in zip(("x", "r", "rr"), outs[0], (x, r, rr)):
-                    err = float((a - b).abs().max())
-                    check(torch.allclose(a, b, rtol=tol, atol=tol),
-                          f"cg_update1 n={nc} c={cc} {dtype}: {name} err {err}")
-                    if dtype == torch.float32:
-                        worst1 = max(worst1, err)
+        for cc in (1, 2, 3, 4):
+            # past one and past two chunks a thread of B3's grid: its
+            # unrolled two chunks, its grid-stride loops
+            wave = (ck.cg2_blocks(1 << 40, cc, dtype, device)
+                    * ck.CG2_THREADS * ck.CG1_ROWS)
+            for nc in (n_small, 70001, MAIN_N, 300001, wave + 5,
+                       2 * wave + 5):
+                e1, e2 = cg_case_bits(ck, nc, cc, dtype, device, tol)
+                if dtype == torch.float32:
+                    worst1, worst2 = max(worst1, e1), max(worst2, e2)
     v, rz, _, rr_prev, thresh = cg_inputs(n, c, torch.float32, device, 8)
     x, r, p = v["x"], v["r"], v["p"]
-    print(f"  B2 cg_update1: c = 1..4, n = {n_small}, 70001, {MAIN_N}, 300001: "
-          f"matches the twin (f32 max abs err {worst1:.3e}) and repeats "
-          f"bit for bit; grid {ck.cg1_blocks(n, c, x.dtype, x.device)} "
-          f"blocks of {ck.CG1_THREADS} at n={n}, c={c}")
+    nb1 = ck.cg1_blocks(n, c, x.dtype, x.device)
+    nb2 = ck.cg2_blocks(n, c, x.dtype, x.device)
+    print(f"  B2 cg_update1, B3 cg_update2: c = 1..4, n = {n_small}, 70001, "
+          f"{MAIN_N}, 300001 and past one and two chunks a thread of B3's "
+          f"grid, f32 and f64: match the twins (f32 max abs err "
+          f"{worst1:.3e}, {worst2:.3e}), repeat bit for bit, eager and as "
+          f"CUDA-graph replays; grids at n={n}, c={c}: {nb1} blocks of "
+          f"{ck.CG1_THREADS} and {nb2} of {ck.CG2_THREADS}")
     rz_old = (r * v["z"]).sum(0)     # beta ~ 1: repeated calls stay finite
     ms1, pl1, ms1_e, pl1_e = time_pair(
         lambda: ck.cg_update1(rz, p, v["ap"], x, r, rr_prev, thresh),
         lambda: ck.cg_update1_plain(rz, p, v["ap"], x, r, rr_prev, thresh))
-    ms2, pl2, ms2_e, pl2_e = time_pair(
+    _, pl2, ms2_e, pl2_e = time_pair(
         lambda: ck.cg_update2(rz_old, r, v["z"], p, rr_prev, thresh),
         lambda: ck.cg_update2_plain(rz_old, r, v["z"], p, rr_prev, thresh))
+    calls = variants_calls(ck, variants, n, c, v, rz_old, rr_prev, thresh,
+                           nb2, ck.CG2_THREADS)
+    calls["cg_update2"] = lambda: ck.cg_update2(rz_old, r, v["z"], p,
+                                                rr_prev, thresh)
+    t = in_turns(calls, ("old cg_update2", "cg_update2", "cg_update2",
+                         "old cg_update2", "empty kernel",
+                         "pass over r, z, p"))
+    ms2 = sum(t["cg_update2"]) / 2
     b1, by1 = bound_ms(6 * n * c * 4, 8 * n * c, torch.float32)
     b2, by2 = bound_ms(4 * n * c * 4, 4 * n * c, torch.float32)
     print(f"  B2 cg_update1 f32 n={n} c={c}: kernel {ms1:.4f} ms, twin "
           f"{pl1:.4f} ms (device, CUDA graph); per eager call {ms1_e:.4f} / "
           f"{pl1_e:.4f} ms; bound {b1:.4f} ms ({by1})")
-    print(f"  B3 cg_update2 f32 n={n} c={c}: kernel {ms2:.4f} ms, twin "
-          f"{pl2:.4f} ms (device, CUDA graph); per eager call {ms2_e:.4f} / "
-          f"{pl2_e:.4f} ms; bound {b2:.4f} ms ({by2})")
+    print(f"  B3 cg_update2 f32 n={n} c={c} ({nb2} blocks): kernel "
+          f"{ms2:.4f} ms (in turns with the two launches it replaced, "
+          f"{old_blocks(n)} blocks: old/new/new/old "
+          + " / ".join(f"{m:.4f}" for m in (t["old cg_update2"][0],
+                                           *t["cg_update2"],
+                                           t["old cg_update2"][1]))
+          + f" ms), twin {pl2:.4f} ms (device, CUDA graph); per eager call "
+          f"{ms2_e:.4f} / {pl2_e:.4f} ms; bound {b2:.4f} ms ({by2}, "
+          f"{b2 / ms2:.0%} of it); floor: an empty kernel over its grid "
+          f"{t['empty kernel'][0]:.4f} ms, one pass of 16-byte chunks over "
+          f"r, z, p {t['pass over r, z, p'][0]:.4f} ms")
     record["cg_update1"] = dict(ms=ms1, plain_ms=pl1, bound_ms=b1,
                                 bound_by=by1, max_abs_err=worst1)
     record["cg_update2"] = dict(ms=ms2, plain_ms=pl2, bound_ms=b2,
@@ -653,28 +802,32 @@ def check_cg(ck, device, record, n_small):
 def given_cases(ck, device):
     """(n, c, dtype) of the given entries' checks: a rank's share of the
     main path's rows over two and four ranks, ragged n (0, 1, 3, 81, 4,099,
-    70,001: partial last chunks) and an n with more 4-row chunks than the
-    card holds threads (the kernels' grid-stride loop), c = 1..4, float32
-    and float64."""
+    70,001: partial last chunks) and, for each grid (cg_dot's and
+    cg_update1_given's; cg_update2_given's), an n with more 4-row chunks
+    than the card holds its threads (the kernels' grid-stride loop), c =
+    1..4, float32 and float64."""
     out = []
     for dtype in (torch.float32, torch.float64):
         for cc in (1, 2, 3, 4):
-            most = ck.cg_given_blocks(1 << 40, cc, dtype, device)
-            loop_n = most * ck.CG1_THREADS * ck.CG1_ROWS + 5
+            loops = [ck.cg_given_blocks(1 << 40, cc, dtype, device)
+                     * ck.CG1_THREADS * ck.CG1_ROWS + 5,
+                     ck.cg2_given_blocks(1 << 40, cc, dtype, device)
+                     * ck.CG2_GIVEN_THREADS * ck.CG1_ROWS + 5]
             out += [(nc, cc, dtype) for nc in
-                    (SHARD_N, QUARTER_N, 0, 1, 3, 81, 4099, 70001, loop_n)]
+                    (SHARD_N, QUARTER_N, 0, 1, 3, 81, 4099, 70001, *loops)]
     return out
 
 
-def check_cg_given(ck, device, record):
+def check_cg_given(ck, device, record, variants):
     """The given entries of B2 and B3 and their dot pass (cg_dot) against
     their twins, with a frozen column and zero divisors, at given_cases'
-    shapes; each called twice must give equal bits, and cg_dot and
-    cg_update1_given, captured in a CUDA graph after those eager calls and
-    replayed twice, the eager call's bits. Then timed in f32, c = 3, at a
-    rank's share over two ranks (reported) and over four, beside each
-    bound (and cg_dot beside torch.linalg.vecdot, the one PyTorch call
-    that computes it)."""
+    shapes; each called twice must give equal bits, and all three,
+    captured in a CUDA graph after those eager calls and replayed twice,
+    the eager call's bits. Then timed in f32, c = 3, at a rank's share over
+    two ranks (reported) and over four, beside each bound (and cg_dot
+    beside torch.linalg.vecdot, the one PyTorch call that computes it);
+    cg_update2_given in turns against the kernel it replaced and beside
+    the floor (an empty kernel over its grid, one pass over z and p)."""
     rtol = {torch.float64: 1e-12, torch.float32: 1e-3}
     worst = dict(cg_dot=0.0, cg_update1_given=0.0, cg_update2_given=0.0)
     cases = given_cases(ck, device)
@@ -698,23 +851,27 @@ def check_cg_given(ck, device, record):
                 pap, rz, v["p"], v["ap"], x, r, rr_prev, thresh)),
             cg_update2_given=(p,))
         ck.cg_update2_given_plain(rz, rz_old, v["z"], p, rr_prev, thresh)
-        gx, gr = v["x"].clone(), v["r"].clone()
+        gx, gr, gp = v["x"].clone(), v["r"].clone(), v["p"].clone()
         gd, grr = rz.clone(), rz.clone()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             gx.copy_(v["x"])
             gr.copy_(v["r"])
+            gp.copy_(v["p"])
             ck.cg_dot(v["p"], v["ap"], out=gd)
             ck.cg_update1_given(pap, rz, v["p"], v["ap"], gx, gr, rr_prev,
                                 thresh, out=grr)
+            ck.cg_update2_given(rz, rz_old, v["z"], gp, rr_prev, thresh)
         for _ in range(2):
             graph.replay()
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in
-                      zip((gd, gx, gr, grr), (outs[0]["cg_dot"][0],
-                                              *outs[0]["cg_update1_given"]))),
-                  f"cg_dot/cg_update1_given n={nc} c={cc} {dtype}: a CUDA "
-                  f"graph's replay differs from the eager call")
+                      zip((gd, gx, gr, grr, gp),
+                          (outs[0]["cg_dot"][0],
+                           *outs[0]["cg_update1_given"],
+                           outs[0]["cg_update2_given"][0]))),
+                  f"given entries n={nc} c={cc} {dtype}: a CUDA graph's "
+                  f"replay differs from the eager call")
         del graph
         for name in worst:
             check(all(torch.equal(a, b) for a, b in
@@ -739,8 +896,8 @@ def check_cg_given(ck, device, record):
     ns = sorted({nc for nc, _, _ in cases})
     print(f"  cg_dot, cg_update1_given, cg_update2_given vs twins: "
           f"{len(cases)} cases, c = 1..4, f32 and f64, n = "
-          f"{', '.join(map(str, ns))}: each repeats bit for bit, and the "
-          f"first two as CUDA-graph replays")
+          f"{', '.join(map(str, ns))}: each repeats bit for bit, eager and "
+          f"as CUDA-graph replays")
     c, w = 3, 4
     for n in (SHARD_N, QUARTER_N):
         v, rz, rz_old, rr_prev, thresh = cg_inputs(n, c, torch.float32,
@@ -765,16 +922,37 @@ def check_cg_given(ck, device, record):
                 lambda: ck.cg_update2_given_plain(rz_old, rz_old, z, p,
                                                   rr_prev, thresh),
                 3 * n * c * w + 4 * c * w, 2 * n * c, None)}
+        grids = {"cg_dot": ck.cg_given_blocks(n, c, x.dtype, x.device)}
+        grids["cg_update1_given"] = grids["cg_dot"]
+        grids["cg_update2_given"] = ck.cg2_given_blocks(n, c, x.dtype,
+                                                        x.device)
+        calls = variants_calls(ck, variants, n, c, v, rz_old, rr_prev,
+                               thresh, grids["cg_update2_given"],
+                               ck.CG2_GIVEN_THREADS)
+        calls["cg_update2_given"] = timed["cg_update2_given"][0]
+        t = in_turns(calls, ("old cg_update2_given", "cg_update2_given",
+                             "cg_update2_given", "old cg_update2_given",
+                             "empty kernel", "pass over z, p"))
         for name, (kern, twin, n_bytes, n_flops, lib) in timed.items():
             ms, pl, ms_e, pl_e = time_pair(kern, twin)
+            turns = ""
+            if name == "cg_update2_given":
+                ms = sum(t[name]) / 2
+                turns = (f" (in turns with the kernel it replaced, "
+                         f"{old_blocks(n)} blocks: old/new/new/old "
+                         + " / ".join(f"{m:.4f}" for m in (
+                             t["old " + name][0], *t[name],
+                             t["old " + name][1]))
+                         + f" ms; floor: an empty kernel over the grid "
+                         f"{t['empty kernel'][0]:.4f} ms, one pass of "
+                         f"16-byte chunks over z, p "
+                         f"{t['pass over z, p'][0]:.4f} ms)")
             lib_ms = device_ms(lib) if lib is not None else None
             b, by = bound_ms(n_bytes, n_flops, torch.float32)
-            print(f"  {name} f32 n={n} c={c} "
-                  f"({ck.cg_given_blocks(n, c, x.dtype, x.device)} blocks "
-                  f"for cg_dot and cg_update1_given): kernel {ms:.4f} ms, "
-                  f"twin {pl:.4f} ms (device, CUDA graph); per eager call "
-                  f"{ms_e:.4f} / {pl_e:.4f} ms; bound {b:.4f} ms ({by}, "
-                  f"{b / ms:.0%} of it)"
+            print(f"  {name} f32 n={n} c={c} ({grids[name]} blocks): "
+                  f"kernel {ms:.4f} ms{turns}, twin {pl:.4f} ms (device, CUDA "
+                  f"graph); per eager call {ms_e:.4f} / {pl_e:.4f} ms; bound "
+                  f"{b:.4f} ms ({by}, {b / ms:.0%} of it)"
                   + (f"; torch.linalg.vecdot {lib_ms:.4f} ms" if lib else "")
                   + f"; f32 max abs err vs twin {worst[name]:.3e}")
             if n == SHARD_N:
@@ -942,8 +1120,7 @@ def profile_trials(solver, init_x, n_iter=5, out="result/profile_full.txt"):
     # the port's own kernels on the solve's real data
     for e in ka:
         if str(e.device_type).endswith("CUDA") and any(
-                k in e.key for k in ("ericson_", "cg1_fused", "cg2_update",
-                                     "col_dot_partial")):
+                k in e.key for k in ("ericson_", "cg1_fused", "cg2_fused")):
             print(f"    port kernel x{e.count:<5d} "
                   f"{dev_us(e) / max(e.count, 1) / 1e3:.4f} ms per launch "
                   f"in the solve: {e.key[:70]}")
@@ -2454,13 +2631,19 @@ def main(argv):
           f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
     phase("1 card", t0)
 
+    variants = None
     if 2 in want:
         t0 = time.perf_counter()
+        finish = start_variants_build(ck) if 3 in want else None
         logs = ck.build_all(verbose=True)
         for name, log in logs.items():
             for line in log.splitlines():
                 if "registers" in line or "spill" in line or "error" in line:
                     print(f"  nvcc {name}: {line.strip()}")
+        if finish is not None:
+            variants = finish()[0]
+            print("  built the replaced CG kernels and the floor kernels "
+                  "(tools/port_cg_given_variants.cu) beside them")
         phase("2 build", t0)
 
     record = {}
@@ -2470,8 +2653,10 @@ def main(argv):
         t0 = time.perf_counter()
         check_ericson(ck, dev, record, n_small)
         check_ericson_idx(ck, dev, record)
-        check_cg(ck, dev, record, n_small)
-        check_cg_given(ck, dev, record)
+        if variants is None:
+            variants = start_variants_build(ck)()[0]
+        check_cg(ck, dev, record, n_small, variants)
+        check_cg_given(ck, dev, record, variants)
         phase("3 kernels vs twins", t0)
 
     if 4 in want:

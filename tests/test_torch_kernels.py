@@ -294,6 +294,93 @@ def test_cg_update1_twin_matches_pallas_columns(c, dtype):
         np.testing.assert_array_equal(t["x"][:, 1].numpy(), v["x"][:, 1])
 
 
+def _pallas_cg_update2(v, rz_old, rr_prev, thresh):
+    """The Pallas cg_update2 (interpret mode, band layout) on numpy inputs:
+    (p, rz)."""
+    n, c = v["p"].shape
+    pb, rz = pk.cg_update2(jnp.asarray(rz_old), pk.to_band(jnp.asarray(v["r"])),
+                           pk.to_band(jnp.asarray(v["z"])),
+                           pk.to_band(jnp.asarray(v["p"])),
+                           rr_prev=jnp.asarray(rr_prev),
+                           thresh=jnp.asarray(thresh))
+    return np.asarray(pk.from_band(pb, n, c)), np.asarray(rz)
+
+
+def _rz_old(rz, c):
+    """rz_old for B3's cases: rz, with a zero divisor in column 0 when c >= 2
+    (column 1 is the frozen one)."""
+    rz_old = rz.copy()
+    if c >= 2:
+        rz_old[0] = 0.0
+    return rz_old
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_cg_update2_twin_matches_pallas_columns(c, dtype):
+    """B3's twin at c = 1..4 columns against the Pallas kernel (interpret
+    mode, band layout): a frozen column and a zero divisor rz_old."""
+    v, rz, rr_prev, thresh = _cg_cols_case(dtype, c)
+    rz_old = _rz_old(rz, c)
+    p_want, rz_want = _pallas_cg_update2(v, rz_old, rr_prev, thresh)
+    t = {k: torch.from_numpy(a.copy()) for k, a in v.items()}
+    rz_t = ck.cg_update2(torch.from_numpy(rz_old), t["r"], t["z"], t["p"],
+                         torch.from_numpy(rr_prev), torch.from_numpy(thresh))
+    tol = CG_TOL[dtype]
+    np.testing.assert_allclose(t["p"].numpy(), p_want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(rz_t.numpy(), rz_want, rtol=max(tol, 1e-10))
+    if c >= 2:        # frozen: beta = 0, p = z
+        np.testing.assert_array_equal(t["p"][:, 1].numpy(), v["z"][:, 1])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("c", [1, 3])
+def test_cg_update2_given_twin_matches_pallas(c, dtype):
+    """cg_update2_given's twin, handed rz = r.z (what the ranks' dots sum
+    to), gives the Pallas cg_update2's p."""
+    v, rz, rr_prev, thresh = _cg_cols_case(dtype, c, seed=17)
+    rz_old = _rz_old(rz, c)
+    p_want, _ = _pallas_cg_update2(v, rz_old, rr_prev, thresh)
+    t = {k: torch.from_numpy(a.copy()) for k, a in v.items()}
+    rz_new = ck.cg_dot(t["r"], t["z"])
+    ck.cg_update2_given(rz_new, torch.from_numpy(rz_old), t["z"], t["p"],
+                        torch.from_numpy(rr_prev), torch.from_numpy(thresh))
+    tol = CG_TOL[dtype]
+    np.testing.assert_allclose(t["p"].numpy(), p_want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("entry", ["cg_update2", "cg_update2_given"])
+def test_cg2_grid_one_wave(entry, c, monkeypatch):
+    """The grids of B3 and of cg_update2_given are functions of (n, c) on a
+    card: the same on every call, at least 1, at most the 4-row chunks, a
+    chunk per thread while the card holds that many, and never more blocks
+    than it holds at once (here a stand-in two blocks per SM of 132), which
+    B3's grid-wide barrier needs. B3 issues all the loads of up to two
+    chunks a thread at once, and has one chunk a thread at the main path's
+    n."""
+    blocks, threads = {"cg_update2": (ck.cg2_blocks, ck.CG2_THREADS),
+                       "cg_update2_given": (ck.cg2_given_blocks,
+                                            ck.CG2_GIVEN_THREADS)}[entry]
+    most = 2 * 132
+    card = torch.device("cuda", 0)
+    for dtype in (torch.float32, torch.float64):
+        monkeypatch.setitem(ck._MAX_BLOCKS,
+                            (entry + "_max_blocks", 0, dtype, c), most)
+        for n in (0, 1, 81, 4099, 57600, 70001, 115200, 230400, 300001,
+                  10**7):
+            nb = blocks(n, c, dtype, card)
+            chunks = -(-n // ck.CG1_ROWS)
+            assert nb == blocks(n, c, dtype, card)
+            assert nb == ck.one_wave_blocks(n, most, threads)
+            assert 1 <= nb <= max(1, chunks) and nb <= most
+            if chunks <= most * threads:
+                assert nb * threads >= chunks
+            if entry == "cg_update2":
+                unrolled = -(-chunks // (nb * threads)) <= 2
+                assert unrolled == (n <= 2 * most * threads * ck.CG1_ROWS)
+
+
 def test_wrappers_validate_inputs():
     """Shape, dtype and device checks raise before any launch; a device
     with no kernel raises instead of falling back."""
@@ -434,6 +521,115 @@ def test_cg_update1_on_card_twin_and_repeatable(cuda_device, n, c, dtype):
     tol = CG_TOL[dtype]
     for a, b in zip(outs[0], (xt, rt, rr_t)):
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+def _device_kernels(fn, warm):
+    """The device kernels that fn() launches, by torch.profiler: [name],
+    or None when the profiler recorded no device event at all (no trace).
+    A first profiler step runs warm() and is discarded (the schedule's
+    warm-up, for the tracer's start-up)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    seen = []
+
+    def ready(prof):
+        seen.extend(e.name for e in prof.events()
+                    if str(e.device_type).endswith("CUDA"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=ready) as prof:
+        for step in (warm, fn):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    if not seen:
+        return None
+    # kernels: not copies, not the step's range
+    return [n for n in seen if not n.startswith("ProfilerStep")
+            and "memcpy" not in n.lower() and "memset" not in n.lower()]
+
+
+def _b3_cases(dev, dtype, c, ns):
+    """[(n, inputs on dev)] of B3 and cg_update2_given: _cg_cols_case's
+    vectors with rz, rz_old (_rz_old), rr_prev and thresh."""
+    cases = []
+    for n in ns:
+        v, rz, rr_prev, thresh = _cg_cols_case(dtype, c, n=n, seed=n + c)
+        v.update(rz=rz, rz_old=_rz_old(rz, c), rr_prev=rr_prev,
+                 thresh=thresh)
+        cases.append((n, {k: torch.from_numpy(a).to(dev)
+                          for k, a in v.items()}))
+    return cases
+
+
+def _one_launch_each(cases, call, entry, kernel):
+    """call(t, p) once per case from a copy of its p (one counted launch
+    each), then again from other copies, all of those in one
+    torch.profiler step, which must see one device kernel per call, named
+    `kernel`. Returns [(first p, first result, second p, second
+    result)]."""
+    runs = []
+    for _, t in cases:
+        p = t["p"].clone()
+        before = ck.launch_counts()[entry]
+        runs.append([p, call(t, p)])
+        assert ck.launch_counts()[entry] == before + 1
+    # a session that the profiler did not trace (no device event at all;
+    # it happens now and then on the card's machine) is run again
+    for _ in range(3):
+        again = [t["p"].clone() for _, t in cases]
+        outs = []
+        spare = cases[-1][1]["p"].clone()
+        kernels = _device_kernels(
+            lambda: outs.extend(call(t, p)
+                                for (_, t), p in zip(cases, again)),
+            lambda: call(cases[-1][1], spare))
+        if kernels is not None:
+            break
+    assert kernels is not None, "torch.profiler traced no session of three"
+    assert len(kernels) == len(cases), kernels
+    assert all(kernel in k for k in kernels), kernels
+    return [run + [p, out] for run, p, out in zip(runs, again, outs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_cg_update2_one_launch_on_card(cuda_device, c, dtype):
+    """B3 on the card at ragged n, a rank's shares, the main path's n and
+    an n past two chunks a thread (all the loads of one or two chunks a
+    thread issued at once; grid-stride loops past that): against its twin,
+    bit-equal on a repeat and under CUDA-graph replay, one device kernel
+    per call (torch.profiler) and one counted launch."""
+    tol = CG_TOL[dtype]
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    wave = (ck.cg2_blocks(1 << 40, c, tdt, cuda_device) * ck.CG2_THREADS
+            * ck.CG1_ROWS)
+    cases = _b3_cases(cuda_device, dtype, c,
+                      GIVEN_NS + (230400, 300001, wave + 5, 2 * wave + 5))
+
+    def call(t, p):
+        return ck.cg_update2(t["rz_old"], t["r"], t["z"], p, t["rr_prev"],
+                             t["thresh"])
+    runs = _one_launch_each(cases, call, "cg_update2", "cg2_fused")
+    for (n, t), (p1, rz1, p2, rz2) in zip(cases, runs):
+        assert torch.equal(p1, p2) and torch.equal(rz1, rz2)
+        pt = t["p"].clone()
+        rz_t = ck.cg_update2_plain(t["rz_old"], t["r"], t["z"], pt,
+                                   t["rr_prev"], t["thresh"])
+        torch.testing.assert_close(p1, pt, rtol=tol, atol=tol)
+        # rz: n terms of size ~1, also at atol tol * sqrt(n)
+        torch.testing.assert_close(rz1, rz_t, rtol=tol,
+                                   atol=tol * max(n, 1) ** 0.5)
+        gp = t["p"].clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gp.copy_(t["p"])
+            grz = call(t, gp)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(gp, p1) and torch.equal(grz, rz1)
 
 
 # ---------------------------------------------------------------------------
@@ -585,3 +781,39 @@ def test_given_two_sizes_alternate_on_card(cuda_device, dtype):
     for k in range(len(sizes)):
         for later in runs[1:]:
             assert all(torch.equal(a, b) for a, b in zip(runs[0][k], later[k]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_given2_one_launch_on_card(cuda_device, c, dtype):
+    """cg_update2_given on the card at ragged n, a rank's shares and an n
+    with more chunks than the card holds threads (its grid-stride loop):
+    against its twin, bit-equal on a repeat and under CUDA-graph replay,
+    one device kernel per call (torch.profiler) and one counted launch."""
+    tol = CG_TOL[dtype]
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    most = ck.cg2_given_blocks(1 << 40, c, tdt, cuda_device)
+    cases = _b3_cases(cuda_device, dtype, c, GIVEN_NS + (
+        most * ck.CG2_GIVEN_THREADS * ck.CG1_ROWS + 5,))
+
+    def call(t, p):
+        ck.cg_update2_given(t["rz"], t["rz_old"], t["z"], p, t["rr_prev"],
+                            t["thresh"])
+        return p
+    runs = _one_launch_each(cases, call, "cg_update2_given", "cg2_given")
+    for (n, t), (p1, _, p2, _) in zip(cases, runs):
+        assert torch.equal(p1, p2)
+        pt = t["p"].clone()
+        ck.cg_update2_given_plain(t["rz"], t["rz_old"], t["z"], pt,
+                                  t["rr_prev"], t["thresh"])
+        torch.testing.assert_close(p1, pt, rtol=tol, atol=tol)
+        gp = t["p"].clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gp.copy_(t["p"])
+            call(t, gp)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(gp, p1)

@@ -19,8 +19,12 @@
   surface of tests/test_torch_geometry.py (20,402 triangles, the subgroup
   cache) sharded over 2 ranks, with the unsharded solve's cache refreshes;
   and dryrun_geometry(2, device="cpu").
+* The matrix-free operator (the CG path without its ELL matrix) at the
+  81-vertex grid's ragged 41/40 split: the rows it hands the CG start on
+  a 16-byte boundary and equal the view they replace.
 * On the card (``cuda``): the given entries of B2 and B3 against their
-  twins, bit-equal on a repeat.
+  twins, bit-equal on a repeat; that ragged split solved through the
+  matrix-free operator on two gloo ranks.
 """
 
 import dataclasses
@@ -40,6 +44,7 @@ from aa_admm_tpu_torch.ops import constraints as tc
 from aa_admm_tpu_torch.ops import cuda_kernels as ck
 from aa_admm_tpu_torch.parallel import ensemble as tens
 from aa_admm_tpu_torch.parallel import geometry as pg
+from aa_admm_tpu_torch.solver import geometry as tg
 from aa_admm_tpu_torch.solver import linear as tl
 from aa_admm_tpu_torch.solver.geometry import ALMGeometrySolver
 
@@ -72,10 +77,11 @@ def _noisy_quad_grid(nx=15, ny=15, noise=0.15, seed=3):
     return verts, np.asarray(edges, np.int64)
 
 
-def _build(solver, c, path):
+def _build(solver, c, path, nx=15, dtype=np.float64):
     """tests/test_parallel_geometry.py::_build_wire_solver in either
-    package (`c` its constraints module); path "cg" or "dense"."""
-    verts, edges = _noisy_quad_grid()
+    package (`c` its constraints module); path "cg" or "dense"; on an
+    nx x nx grid, solved in dtype (the port's solver only)."""
+    verts, edges = _noisy_quad_grid(nx, nx)
     n = len(verts)
     solver.add_hard_constraint(c.EdgeLengthBatch.create(edges, 1.0, 0.9))
     tips = edges[: n // 2, 0]
@@ -86,13 +92,15 @@ def _build(solver, c, path):
                                                        verts))
     for i in range(1, n - 1):
         solver.add_uniform_laplacian([i, i - 1, i + 1], 0.05)
+    if dtype != np.float64:
+        solver.dtype = np.dtype(dtype)
     solver.setup_ADMM(n, penalty_param=100.0, linear_solver=path)
     return solver, verts
 
 
-def _solve(solver, verts):
+def _solve(solver, verts, cg_tol=1e-13):
     solver.solve_ADMM(verts, rel_residual_eps=1e-14, max_iter=ITERS,
-                      anderson_m=M, cg_tol=1e-13)
+                      anderson_m=M, cg_tol=cg_tol)
     return (np.asarray(solver.get_solution()),
             np.asarray(solver.function_values), list(solver.anderson_reset))
 
@@ -329,6 +337,42 @@ def test_given_twins_compose_to_b2_b3_twins():
         ck.cg_update2_given(sm, sm, meta, meta, sm, sm)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_matrix_free_rows_aligned_at_ragged_split(dtype, thread_comm,
+                                                  monkeypatch):
+    """The sharded matrix-free operator (the CG path without its ELL
+    matrix) on the 81-vertex grid split 41/40 over two ranks: rank 1's
+    rows of the summed partials start at byte 41 * 3 * itemsize, off the
+    16-byte boundary that the CG kernels' loads need. The operator hands
+    the CG loop an aligned copy equal to that view; rank 0 keeps its view
+    (no copy). Both ranks' rows together match the unsharded operator."""
+    s, _ = _build(ALMGeometrySolver(device="cpu"), tc, "cg", nx=8,
+                  dtype=dtype)
+    system = dataclasses.replace(s.system, ell=None)
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    v = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (system.n_verts, 3))).to(tdt)
+    shards = [pg.shard_geometry_system(system, m) for m in _meshes(2)]
+    assert [(sh.shard.lo, sh.shard.hi) for sh in shards] == [(0, 41),
+                                                             (41, 81)]
+    fns = [lambda sh=sh: tg._matrix_free(sh, tg._own(sh, v))
+           for sh in shards]
+    with monkeypatch.context() as m:
+        m.setattr(tg, "_aligned", lambda t: t)
+        views = _in_threads(fns)
+    outs = _in_threads(fns)
+    assert views[0].data_ptr() % 16 == 0 and views[1].data_ptr() % 16 != 0
+    for view, out in zip(views, outs):
+        assert out.data_ptr() % 16 == 0 and out.is_contiguous()
+        assert torch.equal(out, view)
+    assert outs[0]._base is not None and outs[1]._base is None
+    want = tg._matrix_free(system, v)
+    # the same terms summed in another order (per rank, then over ranks)
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    torch.testing.assert_close(torch.cat(outs), want, rtol=tol,
+                               atol=tol * float(want.abs().max()))
+
+
 # ---------------------------------------------------------------------------
 # The field-selection guard
 # ---------------------------------------------------------------------------
@@ -514,3 +558,50 @@ def test_given_entries_match_twins_on_card(n, c, dtype):
         atol = tol * (max(n, 1) ** 0.5 if i in (0, 3) else 1)
         torch.testing.assert_close(a, b, rtol=tol, atol=atol)
     assert torch.equal(outs[0][1][:, 0], v["x"][:, 0])   # frozen: unmoved
+
+
+def matrix_free_case(rank, world, device, dtype_name):
+    """One rank of test_matrix_free_ragged_split_solves_on_card: the
+    81-vertex grid on the CG path with the matrix-free operator (the ELL
+    matrix dropped) solved unsharded, then sharded over the world (rows
+    41/40 over two ranks); both solves' (x, fv, rejects), the rank's rows
+    and the sharded solve's kernel launches."""
+    dtype = np.dtype(dtype_name)
+    cg_tol = 1e-13 if dtype == np.float64 else 1e-4
+    out = {}
+    for sharded in (False, True):
+        s, verts = _build(ALMGeometrySolver(device=device), tc, "cg", nx=8,
+                          dtype=dtype)
+        s.system = dataclasses.replace(s.system, ell=None)
+        if sharded:
+            s.shard(pg.make_vert_mesh(world))
+        ck.reset_launch_counts()
+        out[sharded] = _solve(s, verts, cg_tol)
+    sh = s.system.shard
+    return dict(rows=(sh.lo, sh.hi), unsharded=out[False], sharded=out[True],
+                launches=ck.launch_counts())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_matrix_free_ragged_split_solves_on_card(dtype):
+    """The ragged 41/40 split through the matrix-free operator on the card,
+    two gloo ranks on one card: the rows of rank 1 start off a 16-byte
+    boundary, and the given entries take them. float64 holds the unsharded
+    card solve to this file's bounds with equal rejects; float32 is finite;
+    the ranks are bit-equal and launch only the given entries of B2/B3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ranks = tens.run_ranks(2, matrix_free_case, np.dtype(dtype).name,
+                           device="cuda", n_cards=1, timeout=600)
+    assert [r["rows"] for r in ranks] == [(0, 41), (41, 81)]
+    for r in ranks:
+        x, fv, rej = r["sharded"]
+        assert np.isfinite(x).all() and np.isfinite(fv).all()
+        if dtype == np.float64:
+            _assert_matches(x, fv, rej, [("unsharded",) + r["unsharded"]])
+        launches = r["launches"]
+        assert launches["cg_update1"] == launches["cg_update2"] == 0
+        assert launches["cg_dot"] > 0 and launches["cg_update2_given"] > 0
+    for a, b in zip(ranks[0]["sharded"], ranks[1]["sharded"]):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
