@@ -28,13 +28,17 @@ The JAX package pins the element arrays with in-loop sharding constraints
 and checks the lowered module for them. Here the collectives are explicit
 calls, and the system's ``ElemComm`` counts them.
 
-``run_ranks`` spawns the ranks of one process group (over a FileStore in a
-temporary directory, no TCP port, one torch thread each) with a timeout.
-Where each rank runs and which backend joins them is ``rank_placement``'s
-rule: on CUDA with no more ranks than cards, rank r holds card r and the
-ranks sum through NCCL on the cards (the JAX package's meshes span chips
-alike); with more ranks than cards they share the cards round-robin and sum
-through gloo (NCCL takes one rank per card); on the CPU, gloo.
+The ranks of one process group start by one of two routes. On one host
+``run_ranks`` spawns them (over a FileStore in a temporary directory, no
+TCP port, one torch thread each) with a timeout. Across hosts each rank is
+started by ``torchrun`` and reads its place from torchrun's ``env://``
+variables (``parallel/multihost.py``: the JAX package's
+``jax.distributed`` launch, with the dp axis spanning the hosts). Which
+backend joins them is ``card_backend``'s rule either way: NCCL where every
+rank holds a card of its own, whose sums run on the cards (the JAX
+package's meshes span chips alike); gloo where ranks share a card (NCCL
+takes one rank per card) and on the CPU. On one host ``rank_placement``
+puts rank r on card r, round-robin when there are more ranks than cards.
 ``dryrun(world)`` runs both orders sharded on it, with the float64 parity
 of the sharded and unsharded steps, and the sharded geometry solve's
 parity (``parallel/geometry.py``).
@@ -196,16 +200,20 @@ def build_tiny_scene(order: str = "xzu", dtype="float32", admm_iters: int = 3,
     return solver, s
 
 
-def tiny_states(solver: PhysicsSolver, S: int, spread: float = 0.1):
+def tiny_states(solver: PhysicsSolver, S: int, spread: float = 0.1,
+                scenes: slice = slice(None)):
     """(xs, vs, pps) of S replicas of the solver's state, (S, n, 3) on its
     device: replica s starts with y-velocity -spread * s / (S - 1) (JAX
-    ensemble.py:159-161)."""
+    ensemble.py:159-161). `scenes` (a slice of range(S)) builds only those
+    replicas, with the same bits, as a rank builds only its own."""
     x = solver._x_dev
-    xs = x.expand(S, *x.shape).clone()
-    vs = solver._v_dev.expand(S, *x.shape).clone()
-    vs[:, :, 1] = torch.linspace(0.0, -spread, S, dtype=x.dtype,
-                                 device=x.device)[:, None]
-    pps = solver._pin_pos_dev().expand(S, *x.shape).clone()
+    vy = torch.linspace(0.0, -spread, S, dtype=x.dtype,
+                        device=x.device)[scenes]
+    k = vy.shape[0]
+    xs = x.expand(k, *x.shape).clone()
+    vs = solver._v_dev.expand(k, *x.shape).clone()
+    vs[:, :, 1] = vy[:, None]
+    pps = solver._pin_pos_dev().expand(k, *x.shape).clone()
     return xs, vs, pps
 
 
@@ -213,12 +221,23 @@ def tiny_states(solver: PhysicsSolver, S: int, spread: float = 0.1):
 # Element-axis sharding
 # ---------------------------------------------------------------------------
 
+def card_backend(cards) -> str:
+    """The backend of a group whose rank r holds cards[r]: a card's identity
+    (its index on one host, its UUID across hosts), None for the CPU. NCCL
+    where every rank holds a card no other rank holds (NCCL takes one rank
+    per card), else gloo."""
+    cards = list(cards)
+    if all(c is not None for c in cards) and len(set(cards)) == len(cards):
+        return "nccl"
+    return "gloo"
+
+
 def rank_placement(world: int, device_type: str = "cuda", n_cards=None):
-    """(backend, [device of each rank]) of `world` ranks: on the CPU gloo,
-    every rank on the CPU; on CUDA with world <= n_cards NCCL, rank r on
-    cuda:r; with more ranks than cards gloo, rank r on cuda:(r % n_cards)
-    (ranks share the cards). n_cards defaults to the cards this process
-    sees."""
+    """(backend, [device of each rank]) of `world` ranks on one host: on the
+    CPU every rank on the CPU; on CUDA rank r on cuda:(r % n_cards) (ranks
+    beyond the cards share them); the backend card_backend's (NCCL when
+    world <= n_cards, else gloo). n_cards defaults to the cards this
+    process sees."""
     if device_type == "cpu":
         return "gloo", [torch.device("cpu")] * world
     if device_type != "cuda":
@@ -228,7 +247,7 @@ def rank_placement(world: int, device_type: str = "cuda", n_cards=None):
     if n_cards < 1:
         raise ValueError("rank_placement: CUDA ranks need at least one card")
     devices = [torch.device("cuda", r % n_cards) for r in range(world)]
-    return ("nccl" if world <= n_cards else "gloo"), devices
+    return card_backend(d.index for d in devices), devices
 
 
 def mesh_device_type() -> str:
@@ -334,15 +353,20 @@ def rank_info(device) -> dict:
                                 if device.type == "cuda" else None))
 
 
-def check_placement(infos, world, device_type="cuda", n_cards=None):
-    """Raises unless every rank's rank_info is rank_placement's: its
-    backend, its device and, on CUDA, that card current."""
-    backend, devices = rank_placement(world, device_type, n_cards)
+def check_ranks(infos, backend, devices):
+    """Raises unless rank r's rank_info shows `backend`, devices[r] and, on
+    CUDA, that card current."""
     for r, (info, dev) in enumerate(zip(infos, devices)):
         if (info["backend"] != backend or info["device"] != str(dev)
                 or info["current_device"] != dev.index):
             raise RuntimeError(f"rank {r} runs as {info}, not on {dev} "
                                f"under {backend}")
+
+
+def check_placement(infos, world, device_type="cuda", n_cards=None):
+    """Raises unless every rank's rank_info is rank_placement's: its
+    backend, its device and, on CUDA, that card current."""
+    check_ranks(infos, *rank_placement(world, device_type, n_cards))
 
 
 def run_ranks(world: int, fn, *args, device=None, n_cards=None,
@@ -405,10 +429,11 @@ def sharded_case(rank, world, device, spec: dict, out_dir: str):
     hands the rank its device): the float64 tiny scene (`spec`: order,
     iters, m; solver "cg" forces the CG path) on a (dp, elem) mesh of
     prefer_dp, `scenes` replicas (tiny_states) split over dp, each dp group
-    stepping its own as one tiled, element-sharded ensemble. Writes
-    out_dir/rank{rank}.npz (the group's x, v and trace, its scene indices,
-    its mesh coordinates, the collectives, host reads and CG iterations of
-    the step) and returns the small fields and its rank_info."""
+    building and stepping its own as one tiled, element-sharded ensemble.
+    Writes out_dir/rank{rank}.npz (the group's x, v and trace, its scene
+    indices, its mesh coordinates, the collectives, host reads and CG
+    iterations of the step) and returns the small fields and its
+    rank_info."""
     order = spec["order"]
     mesh = make_mesh(world, spec.get("prefer_dp", 1))
     dp, dpr = mesh["dp"].size(), mesh["dp"].get_local_rank()
@@ -419,13 +444,12 @@ def sharded_case(rank, world, device, spec: dict, out_dir: str):
         solver.initialize(s)
     system = shard_system(solver.system, mesh)
     S = spec.get("scenes", dp)
-    xs, vs, pps = tiny_states(solver, S)
     k = S // dp
     mine = slice(dpr * k, (dpr + 1) * k)
+    xs, vs, pps = tiny_states(solver, S, scenes=mine)
     counts = _counts()
     c0 = 0 if system.comm is None else system.comm.count
-    x, v, tr = ensemble_step(order)(system, xs[mine], vs[mine], pps[mine],
-                                    counts)
+    x, v, tr = ensemble_step(order)(system, xs, vs, pps, counts)
     n_coll = 0 if system.comm is None else system.comm.count - c0
     small = dict(rank=rank, dp_rank=dpr,
                  elem_rank=mesh["elem"].get_local_rank(),

@@ -40,7 +40,9 @@ host). On CUDA the tensors stay on the rank's card either way.
 
 ``dryrun_geometry(world)`` runs the JAX dryrun's scene sharded against
 unsharded on spawned ranks (``ensemble.run_ranks``); ``wire_mesh_case`` is
-one rank of a sharded ``optimize_mesh``.
+one rank of a sharded ``optimize_mesh``, on spawned ranks or, across hosts,
+on ranks that torchrun starts (``parallel/multihost.py``), which read their
+scene from the file ``save_scene`` writes.
 """
 
 from __future__ import annotations
@@ -234,6 +236,28 @@ def dryrun_geometry(world: int, device=None, n_cards=None,
 # ---------------------------------------------------------------------------
 # One rank of a sharded wire-mesh solve
 # ---------------------------------------------------------------------------
+
+def save_scene(path: str, scene: dict):
+    """wire_mesh_case's `scene` as an .npz, for ranks that are not the
+    caller's children (the launch across hosts): faces flattened beside
+    their sizes."""
+    faces = [list(f) for f in scene["faces"]]
+    np.savez(path, verts=np.asarray(scene["verts"]),
+             face_sizes=np.asarray([len(f) for f in faces], np.int64),
+             face_idx=np.asarray([v for f in faces for v in f], np.int64),
+             ref_v=np.asarray(scene["ref_v"]),
+             ref_f=np.asarray(scene["ref_f"]),
+             edge_length=np.float64(scene["edge_length"]))
+
+
+def load_scene(path: str) -> dict:
+    """The scene save_scene wrote, as wire_mesh_case takes it."""
+    with np.load(path) as z:
+        cuts = np.cumsum(z["face_sizes"])[:-1]
+        faces = [f.tolist() for f in np.split(z["face_idx"], cuts)]
+        return dict(verts=z["verts"], faces=faces, ref_v=z["ref_v"],
+                    ref_f=z["ref_f"], edge_length=float(z["edge_length"]))
+
 
 def wire_mesh_case(rank, world, device, scene: dict, opts: dict):
     """One rank of ``optimize_mesh`` sharded over `world` ranks (run through

@@ -121,7 +121,23 @@ non-zero before the final result line):
      inside the calls and the nccl kernels' device ms per trial
      (torch.profiler), each rank's device, current card, backend and
      launches; the ranks must be bit-equal, the mean edge error must fall
-     and each rank must hold its own card under NCCL.
+     and each rank must hold its own card under NCCL;
+ 15. the launch across hosts (aa_admm_tpu_torch/parallel/multihost.py):
+     ranks started by torchrun, one per simulated host, each reading its
+     place from torchrun's env:// variables, the dp axis spanning the
+     hosts. Two hosts of one rank on the first card (both see it, so the
+     card rule must give gloo): the JAX multihost dryrun's case (the
+     float64 tiny xzu ensemble, two replicas per host, each against the
+     single-process step, max|dx| < 1e-10, and the geometry dryrun on the
+     same ranks) and the main path, wiremesh-synthetic-231k, f32, 5 ALM
+     iterations, which must be bit-equal to phase 13's two ranks (ms per
+     trial beside phase 13's, seconds from the launch to the first trial,
+     each rank's placement and launches: B1 and the given entries, never
+     the unsharded B2 or B3). With four or more cards, also two hosts of
+     two ranks under NCCL, each host seeing two cards: the same two cases,
+     the main path against phase 14's four ranks (bit-equal, or the
+     difference and NCCL's connections printed and the quality checks
+     held).
 
 ``--phases 1,2,7`` runs only the listed phases (phase 1 always runs); the
 result lines need every phase.
@@ -2390,6 +2406,8 @@ def phase_ensembles(ck):
 
 SHARD_PATH_KERNELS = ("ericson_idx", "cg_dot", "cg_update1_given",
                       "cg_update2_given")
+# the sharded main path's options (phases 13-15): 5 float32 ALM iterations
+SHARD_WIRE_OPTS = dict(max_iter=5, dtype=np.float32)
 
 
 def scene_dict(sub, el, ref_v, ref_f):
@@ -2476,24 +2494,17 @@ def sharded_full(ck, scene, refs, world=2, n_cards=1):
     device ms per trial of the compute and of the nccl kernels), each
     rank's placement and launches, and whether the ranks' replicated
     values are bit-equal. Returns the ranks' results."""
-    from aa_admm_tpu_torch.apps.wire_mesh_opt import check_wiremesh_error
     from aa_admm_tpu_torch.parallel import ensemble as ens
     from aa_admm_tpu_torch.parallel import geometry as pgeo
     sub, el, ref_v, ref_f = scene
-    n_it = 5
     t0 = time.perf_counter()
     ranks = ens.run_ranks(world, pgeo.wire_mesh_case,
                           scene_dict(sub, el, ref_v, ref_f),
-                          dict(max_iter=n_it, dtype=np.float32,
-                               repeat_iters=2),
+                          dict(SHARD_WIRE_OPTS, repeat_iters=2),
                           n_cards=n_cards, timeout=300)
     wall = time.perf_counter() - t0
     ens.check_placement(ranks, world, "cuda", n_cards)
     out = ranks[0]["x"]
-    min_a, max_a = np.pi * 0.25, np.pi * 0.75
-    with contextlib.redirect_stdout(io.StringIO()):
-        e_b, a_b, _ = check_wiremesh_error(sub, sub.verts, el, min_a, max_a)
-        e_a, a_a, _ = check_wiremesh_error(sub, out, el, min_a, max_a)
     for r in ranks:
         st = r["stats"]
         tr = st["trials"]
@@ -2532,26 +2543,44 @@ def sharded_full(ck, scene, refs, world=2, n_cards=1):
           f"ms/trial against {ref_txt}; "
           f"{wall:.1f} s with the ranks' start, scene hand-over and set-up; "
           f"replicated values bit-equal across ranks: {bits}")
+    wire_quality(scene, ranks, "sharded full")
+    check(bits, "sharded full: the ranks' replicated values differ")
+    return ranks
+
+
+def wire_quality(scene, ranks, what):
+    """The sharded wire mesh's checks: prints the edge and angle errors
+    before and after and bench.py's wire-mesh bounds beside them (reported,
+    not gated); fails unless the solution is finite and of the scene's
+    shape, the function values finite, the mean edge error fell and every
+    rank launched B1 and the given entries, never the unsharded B2 or
+    B3."""
+    from aa_admm_tpu_torch.apps.wire_mesh_opt import check_wiremesh_error
+    sub, el, _, _ = scene
+    out = ranks[0]["x"]
+    min_a, max_a = np.pi * 0.25, np.pi * 0.75
+    with contextlib.redirect_stdout(io.StringIO()):
+        e_b, a_b, _ = check_wiremesh_error(sub, sub.verts, el, min_a, max_a)
+        e_a, a_a, _ = check_wiremesh_error(sub, out, el, min_a, max_a)
     print(f"  edge err mean {e_b.mean():.4e} -> {e_a.mean():.4e}, max "
           f"{e_b.max():.4e} -> {e_a.max():.4e}; angle err max "
           f"{a_b.max():.4e} -> {a_a.max():.4e}")
     print(f"  bench.py's wire-mesh bounds (100 iterations on MaleTorso; "
-          f"reported, not gated, beside {n_it} iterations here): max edge "
+          f"reported, not gated, beside {SHARD_WIRE_OPTS['max_iter']} "
+          f"iterations here): max edge "
           f"error {e_a.max():.4e} against "
           f"{QUALITY_LOOSE * WIREMESH_EDGE_MAX:.4e}, max angle error "
           f"{a_a.max():.4e} against {QUALITY_LOOSE * WIREMESH_ANGLE_MAX:.4e}")
     check(np.isfinite(out).all() and out.shape == sub.verts.shape,
-          "sharded full: non-finite or misshapen solution")
+          f"{what}: non-finite or misshapen solution")
     check(all(np.isfinite(r["fv"]).all() and len(r["fv"]) > 0
-              for r in ranks), "sharded full: non-finite function values")
-    check(e_a.mean() < e_b.mean(), "sharded full: mean edge error did not fall")
-    check(bits, "sharded full: the ranks' replicated values differ")
+              for r in ranks), f"{what}: non-finite function values")
+    check(e_a.mean() < e_b.mean(), f"{what}: mean edge error did not fall")
     for r in ranks:
         check(all(r["launches"][k] > 0 for k in SHARD_PATH_KERNELS)
               and r["launches"]["cg_update1"] == 0
               and r["launches"]["cg_update2"] == 0,
-              f"sharded full: kernels of rank {r['rank']}: {r['launches']}")
-    return ranks
+              f"{what}: kernels of rank {r['rank']}: {r['launches']}")
 
 
 def phase_sharded_geometry(ck, scene, unsharded_ms):
@@ -2582,12 +2611,13 @@ def phase_multicard(ck, scene, unsharded_ms, gloo_ms):
     """Phase 14 on world = min(4, cards) cards: the physics and geometry
     dryruns, the f64 small scene and the full-width main path, one rank per
     card under NCCL. Prints one line and does nothing with fewer than two
-    cards. Returns the number of cards it ran on (0 when it did not)."""
+    cards. Returns the number of cards it ran on (0 when it did not) and
+    the full-width ranks' results (None when it did not run)."""
     from aa_admm_tpu_torch.parallel import ensemble as ens
     n = torch.cuda.device_count()
     if n < 2:
         print(f"  phase 14 needs two cards and found {n}: not run")
-        return 0
+        return 0, None
     world = min(4, n)
     print(f"  {world} ranks on {world} of {n} cards, one per card under "
           f"NCCL (each run below checks its ranks' placement)")
@@ -2598,12 +2628,208 @@ def phase_multicard(ck, scene, unsharded_ms, gloo_ms):
     sharded_f64_small(ck, world, n_cards=world)
     print(f"  ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    sharded_full(ck, scene, {"ms/trial unsharded (phase 5)": unsharded_ms,
-                             "ms/trial on 2 gloo ranks on one card "
-                             "(phase 13)": gloo_ms},
-                 world, n_cards=world)
+    ranks = sharded_full(ck, scene, {"ms/trial unsharded (phase 5)":
+                                     unsharded_ms,
+                                     "ms/trial on 2 gloo ranks on one card "
+                                     "(phase 13)": gloo_ms},
+                         world, n_cards=world)
     print(f"  ({time.perf_counter() - t0:.1f} s)")
-    return world
+    return world, ranks
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the launch across hosts
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def env_set(**kw):
+    """os.environ with `kw` set, for the processes started inside."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def hosts_placement_text(r):
+    return (f"rank {r['rank']}: host {r['host']}, local rank "
+            f"{r['local_rank']}, {r['device']} (current "
+            f"{r['current_device']}, CUDA_VISIBLE_DEVICES={r['visible']}), "
+            f"card {r['card']}, {r['backend']}")
+
+
+def ms_per_trial(ranks):
+    st = ranks[0]["stats"]
+    return st["solve_s"] / st["trials"] * 1e3
+
+
+def hosts_dryrun(n_hosts, per_host, backend):
+    """The JAX tool's case on n_hosts torchrun hosts of per_host ranks
+    (parallel/multihost.py): the float64 tiny xzu ensemble, two replicas
+    per host, dp across the hosts, each replica against the single-process
+    step (max|dx| < 1e-10), then the geometry dryrun on the same ranks
+    (1e-9 / 1e-8); the group's backend must be `backend`."""
+    from aa_admm_tpu_torch.parallel import multihost as mh
+    t0 = time.perf_counter()
+    ranks = mh.launch(n_hosts, per_host, "dryrun", timeout=300,
+                      out=f"result/phase15_dryrun_{n_hosts}x{per_host}")
+    s, g = ranks[0]["summary"], ranks[0]["summary"]["geometry"]
+    print(f"  dryrun on {n_hosts} hosts x {per_host} ({s['mesh']}): "
+          f"max|dx| against the single-process step "
+          f"{s['max_dx_vs_single_process']:.3e} "
+          f"({s['checked_shards_per_process']} replica checks per host); "
+          f"geometry max|dx| {g['max_dx']:.3e}, max|dfv/fv| "
+          f"{g['max_dfv_rel']:.3e}; {time.perf_counter() - t0:.1f} s with "
+          f"the hosts' start")
+    for r in ranks:
+        print(f"    {hosts_placement_text(r)}; dp coordinate {r['dp_coord']}")
+    mh.check_host_placement(ranks)
+    check(all(r["dp_coord"] == r["host"] for r in ranks),
+          "phase 15 dryrun: dp does not span the hosts")
+    check(all(r["backend"] == backend for r in ranks),
+          f"phase 15 dryrun: backend {s['backend']}, the card rule gives "
+          f"{backend}")
+    check(s["max_dx_vs_single_process"] < 1e-10 and g["max_dx"] < 1e-9
+          and g["max_dfv_rel"] < 1e-8, f"phase 15 dryrun: {s}")
+
+
+def nccl_transports(out):
+    """NCCL's connections as its INFO lines in the hosts' logs name them
+    ("via P2P/...", "via SHM/...", "via NET/..."), counted."""
+    import collections
+    import re
+    seen = collections.Counter()
+    for name in sorted(os.listdir(out)):
+        if name.startswith("host") and name.endswith(".log"):
+            with open(os.path.join(out, name), errors="replace") as f:
+                seen.update(re.findall(r"\bvia (\S+)", f.read()))
+    return dict(seen)
+
+
+def hosts_wire(scene, n_hosts, per_host, backend, ref, refs_ms, out):
+    """wiremesh-synthetic-231k, f32, 5 ALM iterations (phases 13-14's
+    scene and options) on n_hosts torchrun hosts of per_host ranks: each
+    rank's placement, ms per trial beside `refs_ms` ({label: ms or None}),
+    seconds from the launch to its first trial, launches; wire_quality's
+    checks, the ranks bit-equal, the group's backend `backend`. Returns
+    whether the solution, function values and rejects are bit-equal to
+    `ref` (the same world's ranks started by run_ranks) and the largest
+    difference of the solution."""
+    from aa_admm_tpu_torch.parallel import multihost as mh
+    sub, el, ref_v, ref_f = scene
+    t_launch = time.time()
+    ranks = mh.launch(n_hosts, per_host, "wire", timeout=400, out=out,
+                      scene=scene_dict(sub, el, ref_v, ref_f),
+                      opts=SHARD_WIRE_OPTS)
+    wall = time.time() - t_launch
+    mh.check_host_placement(ranks)
+    for r in ranks:
+        st = r["stats"]
+        first = r["case_start"] - t_launch + r["wall_s"] - st["solve_s"]
+        print(f"    {hosts_placement_text(r)}; rows {r['rows']}: "
+              f"{st['solve_s'] / st['trials'] * 1e3:.1f} ms/trial over "
+              f"{st['trials']} trials, {first:.1f} s from the launch to its "
+              f"first trial, launches {r['launches']}")
+    ref_txt = "; ".join(f"{ms:.1f} {label}" if ms else f"{label}: not run"
+                        for label, ms in refs_ms.items())
+    x0 = ref[0]["x"]
+    bits = all(np.array_equal(r["x"], x0)
+               and np.array_equal(r["fv"], ref[0]["fv"])
+               and r["rejects"] == ref[0]["rejects"] for r in ranks)
+    dx = max(float(np.abs(r["x"] - x0).max()) for r in ranks)
+    print(f"  {len(ranks)} ranks on {n_hosts} hosts ({ranks[0]['backend']}): "
+          f"{ms_per_trial(ranks):.1f} ms/trial against {ref_txt}; {wall:.1f} "
+          f"s with the hosts' start, scene hand-over and set-up; bit-equal "
+          f"to the same ranks started by run_ranks: {bits} (max |dx| "
+          f"{dx:.3e})")
+    wire_quality(scene, ranks, "phase 15 wire mesh")
+    check(all(r["backend"] == backend for r in ranks),
+          f"phase 15 wire mesh: backend {ranks[0]['backend']}, the card "
+          f"rule gives {backend}")
+    check(all(np.array_equal(r["x"], ranks[0]["x"])
+              and np.array_equal(r["fv"], ranks[0]["fv"]) for r in ranks),
+          "phase 15 wire mesh: the ranks' replicated values differ")
+    return bits, dx
+
+
+def wire_reference(scene, world, n_cards):
+    """The sharded main path on `world` ranks started by run_ranks on
+    n_cards cards, without the repeat: phase 15's reference when phase 13
+    or 14 did not run."""
+    from aa_admm_tpu_torch.parallel import ensemble as ens
+    from aa_admm_tpu_torch.parallel import geometry as pgeo
+    sub, el, ref_v, ref_f = scene
+    return ens.run_ranks(world, pgeo.wire_mesh_case,
+                         scene_dict(sub, el, ref_v, ref_f), SHARD_WIRE_OPTS,
+                         n_cards=n_cards, timeout=300)
+
+
+def phase_multihost(ck, scene, gloo_ref, nccl_ref, unsharded_ms):
+    """Phase 15: two torchrun hosts of one rank each on the first card
+    (both see it, so the card rule gives gloo), and with four or more cards
+    two hosts of two ranks each under NCCL, each host seeing two cards: the
+    dryrun and the full-width main path, bit-equal to phase 13's (gloo) and
+    phase 14's (NCCL) solution or, where NCCL's four ranks from two hosts
+    sum otherwise, the difference and NCCL's transports printed and the
+    quality checks held. gloo_ref, nccl_ref: phases 13's and 14's ranks
+    (None: solved here first)."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = (visible.split(",") if visible else
+             [str(i) for i in range(torch.cuda.device_count())])
+    t0 = time.perf_counter()
+    if gloo_ref is None:
+        gloo_ref = wire_reference(scene, 2, 1)
+        print(f"  phase 13's main path on 2 gloo ranks (run_ranks), the "
+              f"reference: {ms_per_trial(gloo_ref):.1f} ms/trial "
+              f"({time.perf_counter() - t0:.1f} s)")
+    with env_set(CUDA_VISIBLE_DEVICES=cards[0]):
+        hosts_dryrun(2, 1, "gloo")
+        t0 = time.perf_counter()
+        bits, _ = hosts_wire(scene, 2, 1, "gloo", gloo_ref,
+                             {"ms/trial unsharded (phase 5)": unsharded_ms,
+                              "on 2 gloo ranks by run_ranks (phase 13)":
+                              ms_per_trial(gloo_ref)},
+                             "result/phase15_wire_2x1")
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+    check(bits, "phase 15: the wire mesh on two hosts of one rank differs "
+                "from phase 13's")
+    if len(cards) < 4:
+        print(f"  two hosts of two NCCL ranks need four cards, found "
+              f"{len(cards)}: not run")
+        return
+    t0 = time.perf_counter()
+    if nccl_ref is None or len(nccl_ref) != 4:
+        nccl_ref = wire_reference(scene, 4, 4)
+        print(f"  phase 14's main path on 4 NCCL ranks (run_ranks), the "
+              f"reference: {ms_per_trial(nccl_ref):.1f} ms/trial "
+              f"({time.perf_counter() - t0:.1f} s)")
+    with env_set(CUDA_VISIBLE_DEVICES=",".join(cards[:4])):
+        hosts_dryrun(2, 2, "nccl")
+        t0 = time.perf_counter()
+        out = "result/phase15_wire_2x2"
+        with env_set(NCCL_DEBUG="INFO"):
+            bits, dx = hosts_wire(
+                scene, 2, 2, "nccl", nccl_ref,
+                {"ms/trial unsharded (phase 5)": unsharded_ms,
+                 "on 4 NCCL ranks by run_ranks (phase 14)":
+                 ms_per_trial(nccl_ref)}, out)
+        print(f"  NCCL's connections (NCCL_DEBUG=INFO, the hosts' logs in "
+              f"{out}): {nccl_transports(out)}")
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+    if bits:
+        print("  two hosts of two NCCL ranks: bit-equal to phase 14's four "
+              "ranks")
+    else:
+        print(f"  two hosts of two NCCL ranks: NOT bit-equal to phase 14's "
+              f"four ranks (max |dx| {dx:.3e}); held to phase 14's quality "
+              f"checks above instead")
+
+
 
 
 def main(argv):
@@ -2613,7 +2839,7 @@ def main(argv):
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from aa_admm_tpu_torch.ops import cuda_kernels as ck
-    want = set(range(1, 15))
+    want = set(range(1, 16))
     if argv[:1] == ["--phases"] and len(argv) == 2:
         want = {1} | {int(a) for a in argv[1].split(",")}
     elif argv:
@@ -2728,13 +2954,24 @@ def main(argv):
         if 13 in want:
             st = shard_ranks[0]["stats"]
             gloo_ms = st["solve_s"] / st["trials"] * 1e3
-        cards = phase_multicard(
+        cards, card_ranks = phase_multicard(
             ck, full, solver.stats["solve_s"] / solver.stats["trials"] * 1e3
             if 5 in want else None, gloo_ms)
         phase(f"14 sharded paths over cards ({cards} cards under NCCL)"
               if cards else "14 sharded paths over cards (not run)", t0)
 
-    if want != set(range(1, 15)):
+    if 15 in want:
+        t0 = time.perf_counter()
+        if full is None:
+            full = full_scene()
+        phase_multihost(
+            ck, full, shard_ranks if 13 in want else None,
+            card_ranks if 14 in want else None,
+            solver.stats["solve_s"] / solver.stats["trials"] * 1e3
+            if 5 in want else None)
+        phase("15 the launch across hosts (torchrun)", t0)
+
+    if want != set(range(1, 16)):
         print(f"  total {time.perf_counter() - T0:.1f} s; phases "
               f"{sorted(want)} only, so no result lines")
         return 3
