@@ -137,10 +137,23 @@ non-zero before the final result line):
      two ranks under NCCL, each host seeing two cards: the same two cases,
      the main path against phase 14's four ranks (bit-equal, or the
      difference and NCCL's connections printed and the quality checks
-     held).
+     held);
+ 16. the JAX package's on-chip f32 contract (tests_tpu/), with its bounds:
+     one f32 beams step of 100 plain iterations against the C++ golden
+     (relative error below 1e-2 while the C++ residual is above 1e-2 of
+     its first value, the 1e-2 milestone within 3 iterations of the C++
+     one) and Anderson m = 5 at f32 reaching 1e-2 within 15 iterations;
+     closest points at f32 on the main path's reference surface (39,762
+     triangles): 2,000 near-surface queries through the 2-stage sweep, the
+     group cache's refresh, a small move and its fast path, each within
+     rtol 2e-5, atol 1e-4 of the plain torch brute force on the card, and
+     2,000 far-field queries through the 2-stage sweep (at most 2% off, at
+     most 6% relative); the ms of each beside the brute force, and B1's
+     launches (the ``phase16_launches`` of the kernels' record).
 
 ``--phases 1,2,7`` runs only the listed phases (phase 1 always runs); the
-result lines need every phase.
+result lines need every phase. ``--seed N`` seeds phase 16's queries (11,
+the JAX test's, by default).
 
 The last two lines are the kernels' JSON record and the run's result JSON.
 Imports nothing of JAX and nothing of the JAX package.
@@ -392,18 +405,25 @@ def small_scene(n_ref=102):
     return subdivide_and_smooth(mesh), el * 0.5, ref_v, ref_f
 
 
+def full_field(x, y):
+    return 3.0 * np.sin(2 * np.pi * x / 80.0) * np.cos(2 * np.pi * y / 60.0)
+
+
+def full_reference(n_faces=240, n_ref=142):
+    """The main path's reference surface: full_field triangulated to
+    2 * 141^2 = 39,762 triangles (MaleTorso_target's size)."""
+    return height_field_tris(n_ref, -2.0, n_faces + 2.0, full_field)
+
+
 def full_scene(n_faces=240, n_ref=142):
     """MaleTorso scale: a noisy 240 x 240-face quad grid on a bumpy height
     field, subdivided and smoothed to 231,361 vertices; the reference is
     the same field triangulated to 2 * 141^2 = 39,762 triangles."""
     from aa_admm_tpu_torch.core.polymesh import subdivide_and_smooth
 
-    def field(x, y):
-        return 3.0 * np.sin(2 * np.pi * x / 80.0) * np.cos(2 * np.pi * y / 60.0)
-
-    mesh = quad_grid(n_faces, n_faces, 0.05, field=field, seed=1)
+    mesh = quad_grid(n_faces, n_faces, 0.05, field=full_field, seed=1)
     el = mesh.average_edge_length()
-    ref_v, ref_f = height_field_tris(n_ref, -2.0, n_faces + 2.0, field)
+    ref_v, ref_f = full_reference(n_faces, n_ref)
     return subdivide_and_smooth(mesh), el * 0.5, ref_v, ref_f
 
 
@@ -2830,6 +2850,177 @@ def phase_multihost(ck, scene, gloo_ref, nccl_ref, unsharded_ms):
               f"checks above instead")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the JAX package's on-chip f32 contract (tests_tpu/)
+# ---------------------------------------------------------------------------
+
+# tests_tpu's bounds, unchanged (tests/test_torch_chip_f32.py and
+# tests/test_torch_chip_closest_point.py hold the same on the CPU and card)
+EARLY_REL, MILESTONE_SLACK, AA_HIT_MAX = 1e-2, 3, 15
+NEAR_TOL = dict(rtol=2e-5, atol=1e-4)
+FAR_FRAC_OFF, FAR_REL_MAX = 0.02, 0.06
+CP_QUERIES = 2000
+CP_SEED = 11                   # tests_tpu's queries' seed
+
+
+def beams_f32_step(accel):
+    """One f32 beams step of 100 iterations on the card (tests_tpu's
+    _settings): (prim as f64, the step's ms)."""
+    from aa_admm_tpu_torch.apps import beams
+    s = beams_settings(accel)
+    s.dtype = np.dtype("float32")
+    solver, stretch = beams.build_scene(s, device="cuda")
+    stretch(s.timestep_s)
+    tr = solver.step()
+    check(tr.prim.dtype == torch.float32, "phase 16: beams did not run f32")
+    return tr.prim.cpu().numpy().astype(np.float64), solver.step_ms[-1]
+
+
+def early_phase(prim, cpp):
+    """tests_tpu's _early_phase_check as numbers: (max relative error while
+    the C++ prim is above 1e-2 of its first value, the iterations that
+    covers, our 1e-2 milestone, the C++ one)."""
+    n = min(len(prim), len(cpp))
+    prim, ref = prim[:n], cpp[:n, 1]
+    mask = ref > 1e-2 * ref[0]
+    rel = np.abs(prim[mask] - ref[mask]) / ref[mask]
+    return (float(rel.max()), int(mask.sum()),
+            int(np.argmax(prim < 1e-2 * prim[0])),
+            int(np.argmax(ref < 1e-2 * ref[0])))
+
+
+def cp_dist(q, pts):
+    return np.linalg.norm(q - pts.cpu().numpy(), axis=1)
+
+
+def near_regime(tri, args, q, edge):
+    """tests_tpu's near-surface check on the card: the 2-stage sweep, a
+    group-cache refresh and the cache after a small motion against brute
+    force, then the cache's fast path on the queries with a positive slack
+    (moved by 0.4 of the least). Returns the fast path's queries and cache."""
+    from aa_admm_tpu_torch.ops import closest_point as tcp
+
+    def against_brute(what, qn, out):
+        want = cp_dist(qn, tcp.closest_point_on_mesh(torch.from_numpy(qn)
+                                                     .cuda(), tri))
+        got = cp_dist(qn, out)
+        err = np.abs(got - want) / (NEAR_TOL["atol"]
+                                    + NEAR_TOL["rtol"] * np.abs(want))
+        print(f"    near, {what}: {len(qn)} queries, max |d - d_brute| "
+              f"{np.abs(got - want).max():.3e} ({err.max():.3f} of the "
+              f"bound)")
+        check(err.max() <= 1.0, f"phase 16: near-surface {what} differs "
+              f"from brute force beyond rtol 2e-5, atol 1e-4")
+
+    qt = torch.from_numpy(q).cuda()
+    against_brute("2-stage", q,
+                  tcp.closest_point_on_mesh_2stage(qt, tri, k=48))
+    cache = tcp.cp_cache_group_init(len(q), 6, torch.float32, "cuda")
+    out, cache, refreshed = tcp.closest_point_cached_group(qt, *args, cache)
+    check(refreshed, "phase 16: the first group-cache query did not refresh")
+    against_brute("group refresh", q, out)
+    sl = cache.slack.cpu().numpy()
+    check(np.median(sl) > 0, "phase 16: the group cache's median slack is "
+          "not positive")
+    step = min(0.1 * float(np.median(sl)), 0.2 * edge)
+    q2 = q + np.asarray([step, 0.0, 0.0], np.float32)
+    out2, _, refreshed = tcp.closest_point_cached_group(
+        torch.from_numpy(q2).cuda(), *args, cache)
+    against_brute(f"group cache after a move of {step:.3e} "
+                  f"({'refreshed' if refreshed else 'fast path'})", q2, out2)
+    q3 = q[sl > 0]
+    cache3 = tcp.cp_cache_group_init(len(q3), 6, torch.float32, "cuda")
+    _, cache3, _ = tcp.closest_point_cached_group(torch.from_numpy(q3)
+                                                  .cuda(), *args, cache3)
+    q3 = q3 + np.asarray([0.4 * float(cache3.slack.min()), 0.0, 0.0],
+                         np.float32)
+    q3t = torch.from_numpy(q3).cuda()
+    out3, _, refreshed = tcp.closest_point_cached_group(q3t, *args, cache3)
+    check(not refreshed, "phase 16: the forced fast path refreshed")
+    against_brute("group fast path", q3, out3)
+    return q3t, cache3
+
+
+def phase_f32_contract(ck, seed):
+    """Phase 16: (a) beams' f32 step against the C++ golden (early-phase
+    parity and milestone) and AA m = 5's convergence; (b) closest points at
+    f32 on the main path's reference surface (39,762 triangles, phase 5's),
+    2,000 near-surface and 2,000 far-field queries from `seed`, as
+    tests_tpu/test_closest_point_tpu.py makes them, through the 2-stage
+    sweep and the group cache (kernel B1) against the plain torch brute
+    force on the card. Returns the kernels' launches in the checks."""
+    from aa_admm_tpu_torch.ops import closest_point as tcp
+    ck.reset_launch_counts()
+    cpp = np.loadtxt(GOLDEN)
+    prim, ms = beams_f32_step(False)
+    rel, n_early, ours, theirs = early_phase(prim, cpp)
+    print(f"  (a) beams f32, one step of 100 plain iterations ({ms:.1f} ms): "
+          f"early-phase max rel error {rel:.3e} over {n_early} iterations "
+          f"(bound {EARLY_REL}); 1e-2 milestone at iteration {ours}, C++ "
+          f"{theirs} (bound +/-{MILESTONE_SLACK})")
+    check(np.isfinite(prim).all(), "phase 16: non-finite f32 beams prim")
+    check(rel < EARLY_REL, f"phase 16: beams f32 early-phase error {rel}")
+    check(abs(ours - theirs) <= MILESTONE_SLACK,
+          f"phase 16: milestone at {ours}, C++ {theirs}")
+    prim, ms = beams_f32_step(True)
+    hit = int(np.argmax(prim < 1e-2 * prim[0]))
+    print(f"      beams f32 -a 1 -am 5 ({ms:.1f} ms): 1e-2 of the first "
+          f"residual at iteration {hit} (bound {AA_HIT_MAX})")
+    check(np.isfinite(prim).all() and prim[hit] < 1e-2 * prim[0]
+          and hit <= AA_HIT_MAX, f"phase 16: AA f32 milestone at {hit}")
+
+    ref_v, ref_f = full_reference()
+    tv = ref_v[ref_f].astype(np.float32)
+    tri = torch.from_numpy(tv).cuda()
+    S = 64
+    tp, cent, rad, gc, gr = tcp.build_tri_groups(tv, group_size=S)
+    G = len(gc)
+    args = [torch.from_numpy(a).to("cuda", torch.float32)
+            for a in (tp.reshape(G, S, 3, 3), cent.reshape(G, S, 3),
+                      rad.reshape(G, S), gc, gr)]
+    rng = np.random.default_rng(seed)
+    edge = float(np.linalg.norm(tv[:, 0] - tv[:, 1], axis=1).mean())
+    base = tv[rng.integers(0, len(tv), CP_QUERIES)].mean(axis=1)
+    near = (base + 2.0 * edge * rng.standard_normal((CP_QUERIES, 3))) \
+        .astype(np.float32)
+    rng = np.random.default_rng(seed)
+    lo, hi = ref_v.min(0), ref_v.max(0)
+    far = (lo + (hi - lo) * rng.random((CP_QUERIES, 3))).astype(np.float32)
+    print(f"  (b) closest points, f32, on the main path's reference "
+          f"({len(tv)} triangles, {G} groups of {S}), queries from seed "
+          f"{seed}:")
+    q3t, cache3 = near_regime(tri, args, near, edge)
+
+    ft = torch.from_numpy(far).cuda()
+    d_brute = cp_dist(far, tcp.closest_point_on_mesh(ft, tri))
+    d_2s = cp_dist(far, tcp.closest_point_on_mesh_2stage(ft, tri, k=48))
+    frel = np.abs(d_2s - d_brute) / np.maximum(d_brute, 1e-6)
+    n_off = int((frel > 1e-4).sum())
+    print(f"    far field, 2-stage: {n_off} of {CP_QUERIES} queries off "
+          f"(bound {FAR_FRAC_OFF:.0%}), worst relative error "
+          f"{frel.max():.3e} (bound {FAR_REL_MAX})")
+    check(n_off <= FAR_FRAC_OFF * CP_QUERIES,
+          f"phase 16: far-field recall, {n_off} queries off")
+    check(frel.max() <= FAR_REL_MAX,
+          f"phase 16: worst far-field error {frel.max()}")
+    counts = ck.launch_counts()
+    print(f"    kernel launches in the phase's checks: {counts}")
+    check(counts["ericson_idx"] > 0, "phase 16: B1 was not launched")
+
+    # eager ms per call (CUDA events; host syncs and launches included)
+    nt = torch.from_numpy(near).cuda()
+    fresh = tcp.cp_cache_group_init(CP_QUERIES, 6, torch.float32, "cuda")
+    times = {
+        "brute force (plain torch)": lambda: tcp.closest_point_on_mesh(nt,
+                                                                       tri),
+        "2-stage": lambda: tcp.closest_point_on_mesh_2stage(nt, tri, k=48),
+        "group refresh": lambda: tcp.closest_point_cached_group(
+            nt, *args, fresh),
+        f"group fast path ({len(q3t)} queries)":
+            lambda: tcp.closest_point_cached_group(q3t, *args, cache3)}
+    print("    ms per call on the near queries: " + ", ".join(
+        f"{k} {cuda_ms(f, iters=10):.3f}" for k, f in times.items()))
+    return counts
 
 
 def main(argv):
@@ -2839,11 +3030,19 @@ def main(argv):
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from aa_admm_tpu_torch.ops import cuda_kernels as ck
-    want = set(range(1, 16))
-    if argv[:1] == ["--phases"] and len(argv) == 2:
-        want = {1} | {int(a) for a in argv[1].split(",")}
-    elif argv:
-        print("usage: python3 chip_smoke.py [--phases 2,3,...]",
+    want, seed = set(range(1, 17)), CP_SEED
+    args = list(argv)
+    try:
+        while args:
+            flag, value = args.pop(0), args.pop(0)
+            if flag == "--phases":
+                want = {1} | {int(a) for a in value.split(",")}
+            elif flag == "--seed":
+                seed = int(value)
+            else:
+                raise ValueError(flag)
+    except (IndexError, ValueError):
+        print("usage: python3 chip_smoke.py [--phases 2,3,...] [--seed N]",
               file=sys.stderr)
         return 1
 
@@ -2971,7 +3170,13 @@ def main(argv):
             if 5 in want else None)
         phase("15 the launch across hosts (torchrun)", t0)
 
-    if want != set(range(1, 16)):
+    if 16 in want:
+        t0 = time.perf_counter()
+        f32_counts = phase_f32_contract(ck, seed)
+        phase("16 the f32 contract of tests_tpu/ (beams vs the C++ golden, "
+              "closest points vs brute force)", t0)
+
+    if want != set(range(1, 17)):
         print(f"  total {time.perf_counter() - T0:.1f} s; phases "
               f"{sorted(want)} only, so no result lines")
         return 3
@@ -3025,7 +3230,8 @@ def main(argv):
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
-                            library_ms=r.get("library_ms")))
+                            library_ms=r.get("library_ms"),
+                            phase16_launches=f32_counts[name]))
     print(f"  total {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -129,10 +129,27 @@ def test_group_cache_matches_jax(sphere_22k):
     S = 64
     tp, cent, rad, gc, gr = jcp.build_tri_groups(tri, group_size=S)
     tp_t, cent_t, rad_t, gc_t, gr_t = tcp.build_tri_groups(tri, group_size=S)
+    # the JAX layout in another Morton order (the port quantizes the three
+    # axes on one scale): the same rows and padding, and group bounds that
+    # hold every member. The queries below run both packages on the JAX
+    # layout.
+    T, G = len(tri), len(gc)
     for a, b in [(tp, tp_t), (cent, cent_t), (rad, rad_t), (gc, gc_t),
                  (gr, gr_t)]:
-        np.testing.assert_array_equal(a, b)
-    G = len(gc)
+        assert a.shape == b.shape
+    rows_j = np.concatenate([tp.reshape(-1, 9), cent, rad[:, None]], 1)
+    rows_t = np.concatenate([tp_t.reshape(-1, 9), cent_t, rad_t[:, None]], 1)
+    np.testing.assert_array_equal(rows_t[T:], rows_j[T:])
+    np.testing.assert_array_equal(rows_t[:T][np.lexsort(rows_t[:T].T)],
+                                  rows_j[:T][np.lexsort(rows_j[:T].T)])
+    valid = (np.arange(G * S) < T).reshape(G, S)
+    cg = cent_t.reshape(G, S, 3)
+    np.testing.assert_allclose(
+        gc_t, (cg * valid[..., None]).sum(1) / valid.sum(1)[:, None],
+        rtol=1e-12, atol=1e-12)
+    reach = np.linalg.norm(cg - gc_t[:, None], axis=-1) + rad_t.reshape(G, S)
+    np.testing.assert_allclose(gr_t, np.where(valid, reach, 0.0).max(1),
+                               rtol=1e-12, atol=1e-12)
     jargs = (jnp.asarray(tp.reshape(G, S, 3, 3)), jnp.asarray(cent.reshape(G, S, 3)),
              jnp.asarray(rad.reshape(G, S)), jnp.asarray(gc), jnp.asarray(gr))
     targs = (torch.from_numpy(tp.reshape(G, S, 3, 3)),
