@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.timers import span
 from . import cuda_kernels as ck
 
 
@@ -351,7 +352,8 @@ def _needs_refresh(p, cache, reduce=None) -> bool:
     need = (2.0 * moved >= cache.slack).any()
     if reduce is not None:
         need = reduce(need.to(p.dtype).reshape(1))[0] > 0
-    return bool(need)
+    with span("sync"):
+        return bool(need)
 
 
 def closest_point_cached_group(p, tri_blk, cent_blk, rad_blk, gcenter,

@@ -27,6 +27,7 @@ from typing import ClassVar, Optional
 import numpy as np
 import torch
 
+from ..core.timers import span
 from ._batchutil import (  # noqa: F401 (re-export)
     GatherAdjoint, _host_mirror, _t, cast_floats, hostarr, torch_dtype,
     with_gather_adjoint)
@@ -329,8 +330,9 @@ class RefSurfaceBatch(GatherAdjoint):
         w = np.full(C, np.sqrt(weight), dtype)
         grp = {}
         if len(rf) > _CP_GROUP_THRESHOLD:
-            tp, cent, rad, gc, gr = build_tri_groups(rv[rf],
-                                                     group_size=group_size)
+            with span("setup.build"):
+                tp, cent, rad, gc, gr = build_tri_groups(
+                    rv[rf], group_size=group_size)
             G, S = len(gc), group_size
             grp = dict(grp_tris=_t(tp.reshape(G, S, 3, 3), dtype),
                        grp_cent=_t(cent.reshape(G, S, 3), dtype),

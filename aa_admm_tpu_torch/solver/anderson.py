@@ -31,6 +31,8 @@ import dataclasses
 
 import torch
 
+from ..core.timers import span
+
 _EPS = 1e-14
 
 
@@ -122,7 +124,9 @@ def _solve_theta(M, rhs, valid, batched):
     vmask = valid[..., :, None] & valid[..., None, :]
     Mm = torch.where(vmask, M, eye)
     rhs_m = torch.where(valid, rhs, torch.zeros_like(rhs))
-    host = torch.cat([Mm, rhs_m[..., None, :]], dim=-2).cpu()
+    systems = torch.cat([Mm, rhs_m[..., None, :]], dim=-2)
+    with span("sync"):
+        host = systems.cpu()
     w, Q = torch.linalg.eigh(host[..., :m, :])
     cutoff = (torch.clamp_min(w.abs().amax(-1, keepdim=True), _EPS)
               * (m * torch.finfo(M.dtype).eps * 10))

@@ -45,7 +45,7 @@ import torch
 
 from .. import resolve_device
 from ..core.meshio import save_residual_file
-from ..core.timers import MicroTimer
+from ..core.timers import MicroTimer, span, spanned
 from ..ops._batchutil import GatherAdjoint
 from ..ops.constraints import (AngleBatch, ClosenessBatch, EdgeLengthBatch,
                                PlaneBatch, RefSurfaceBatch,
@@ -335,20 +335,27 @@ def _alm_trial(system: GeometrySystem, st, it_h: int):
     prev_dx_h = dx_h
 
     # z-update (:425-440): hard projects (D_h x + u); soft projects D_s x.
-    z_h = tuple(b.project(d + ui) for b, d, ui in zip(system.hard, dx_h, cu))
-    z_s, cps = [], []
-    for b, d, c in zip(system.soft, dx_s, st["cp"]):
-        if c is None:
-            z_s.append(b.project(d))
-            cps.append(None)
-        else:
-            z, c2, refreshed = b.project_cached(d, c, _reducer(system))
-            reads += 1
-            refreshes += int(refreshed)
-            z_s.append(z)
-            cps.append(c2)
+    # The local step: the projections, the closest-point cache's test and
+    # refresh.
+    with span("local"):
+        z_h = tuple(b.project(d + ui)
+                    for b, d, ui in zip(system.hard, dx_h, cu))
+        z_s, cps = [], []
+        for b, d, c in zip(system.soft, dx_s, st["cp"]):
+            if c is None:
+                z_s.append(b.project(d))
+                cps.append(None)
+            else:
+                z, c2, refreshed = b.project_cached(d, c, _reducer(system))
+                reads += 1
+                refreshes += int(refreshed)
+                z_s.append(z)
+                cps.append(c2)
 
-    new_x, n_cg, cg_reads = _solve_x(system, z_h, cu, tuple(z_s), x_warm=cx)
+    # The global step: the x-update's solve.
+    with span("global"):
+        new_x, n_cg, cg_reads = _solve_x(system, z_h, cu, tuple(z_s),
+                                         x_warm=cx)
     reads += cg_reads
     dx_h2 = system.dx_hard(_full(system, new_x))
     new_u = tuple(ui + d - zh for ui, d, zh in zip(cu, dx_h2, z_h))
@@ -402,7 +409,8 @@ def solve_alm_chunk(system: GeometrySystem, state):
     st = dict(state)
     while st["trial"] < st["max_trials"]:
         st["reads"] += 1
-        it_h = int(st["it"])
+        with span("sync"):
+            it_h = int(st["it"])
         if it_h >= st["limit"]:
             break
         st = _alm_trial(system, st, it_h)
@@ -543,6 +551,7 @@ class ALMGeometrySolver:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype or torch_dtype(self.dtype))
 
+    @spanned("setup.build")
     def setup_ADMM(self, n_points: int, penalty_param: float,
                    linear_solver: str = "auto") -> bool:
         t = MicroTimer()
@@ -605,6 +614,7 @@ class ALMGeometrySolver:
         print(f"predecomposition time = {self.setup_s:.6f}")
         return True
 
+    @spanned("solve")
     def solve_ADMM(self, init_x: np.ndarray, rel_residual_eps: float,
                    max_iter: int, anderson_m: int,
                    cg_tol: float = None, cg_max_iters: int = None,
@@ -651,7 +661,8 @@ class ALMGeometrySolver:
             x0=self._tensor(_own(sys0, x0_np)), t0_hard=t0_h, t0_soft=t0_s,
             Ax0=self._tensor(_own(sys0, Ax0)))
         x0 = self._tensor(_own(sys0, np.asarray(init_x)))
-        e0 = float(soft_energy_delta(self.system, torch.zeros_like(x0)))
+        with span("solve.energy"):
+            e0 = float(soft_energy_delta(self.system, torch.zeros_like(x0)))
         print(f"Init energy = {e0}")
 
         comm = None if sys0.shard is None else sys0.shard.comm
@@ -670,7 +681,8 @@ class ALMGeometrySolver:
                                      device=self.device)
             state["rj"] = torch.zeros((chunk,), dtype=torch.int64,
                                       device=self.device)
-            state = solve_alm_chunk(self.system, state)
+            with span("alm.loop"):
+                state = solve_alm_chunk(self.system, state)
             n_acc = int(state["it"])
             fvs.append(state["fv"][:n_acc].cpu().numpy())
             rjs.append(state["rj"][:n_acc].cpu().numpy())
@@ -704,7 +716,8 @@ class ALMGeometrySolver:
             self.stats.update(collectives=comm.count - c0[0],
                               comm_bytes=comm.nbytes - c0[1],
                               comm_s=comm.seconds - c0[2])
-        ef = float(soft_energy_delta(self.system, delta))
+        with span("solve.energy"):
+            ef = float(soft_energy_delta(self.system, delta))
         print(f"final energy = {ef}")
         print(f"solve time = {total:.3f}s for {len(fv)} accepted iterations")
         return trace

@@ -34,6 +34,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core.timers import span
 from ..ops import cuda_kernels as ck
 from ..ops._batchutil import hostarr
 
@@ -135,7 +136,9 @@ def pcg(operator: Callable, rhs, diag, tol: float = 1e-12,
     it = reads = 0
     while it < max_iters:
         reads += 1
-        if not bool((rr / rhs_norm2 > tol2).any()):
+        with span("sync"):
+            converged = not bool((rr / rhs_norm2 > tol2).any())
+        if converged:
             break
         Ap = operator(p)
         pAp = (p * Ap).sum(0)
@@ -179,7 +182,9 @@ def pcg_fused(operator: Callable, rhs, diag, tol: float = 1e-12,
     it = reads = 0
     while it < max_iters:
         reads += 1
-        if not bool((rr > thresh).any()):
+        with span("sync"):
+            converged = not bool((rr > thresh).any())
+        if converged:
             break
         Ap = operator(p)
         rr_new = ck.cg_update1(rz, p, Ap, x, r, rr, thresh)
@@ -203,7 +208,9 @@ def _pcg_given(operator, rhs, tol, max_iters, x, r, p, precond, reduce):
     it = reads = 0
     while it < max_iters:
         reads += 1
-        if not bool((rr > thresh).any()):
+        with span("sync"):
+            converged = not bool((rr > thresh).any())
+        if converged:
             break
         Ap = operator(p)
         pAp = reduce(ck.cg_dot(p, Ap))

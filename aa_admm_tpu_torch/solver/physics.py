@@ -90,7 +90,7 @@ from ..core.checkpoint import load_admm_state_text, save_admm_state_text
 from ..core.config import Lame, Settings
 from ..core.factory import TetMeshData
 from ..core.meshio import save_residual_file
-from ..core.timers import MicroTimer, RuntimeData
+from ..core.timers import MicroTimer, RuntimeData, span, spanned
 from ..ops._batchutil import GatherAdjoint, cast_floats, torch_dtype
 from ..ops.collider import (DynamicTetCollider, HashGridTetCollider,
                             TetMeshSdf)
@@ -427,7 +427,8 @@ def _graphed(system: PhysicsSystem, key, fn, x):
         return fn(x)
     graphs = system.__dict__.setdefault("_graphs", {})
     if key not in graphs:
-        graphs[key] = _GraphedCall(fn, x)
+        with span("setup.capture"):
+            graphs[key] = _GraphedCall(fn, x)
     return graphs[key](x)
 
 
@@ -608,60 +609,71 @@ def _xzu_body(system: PhysicsSystem, consts, counts=None):
         dx_, dz_, du_ = carry["dx"], carry["dz"], carry["du"]
         aa = carry["aa"]
 
+        # Spans: step.local around the gradient's and the prox's graph
+        # replays, step.global around the x-solve with its residual and
+        # reject branch, step.comb around the whole combined residual (its
+        # own solve and z-update open no span of their own).
         if accel:
             # u <- W^-1 grad U(z) (Solver.cpp:127-133)
-            cu = _j_winv_grad(system, cz)
+            with span("step.local"):
+                cu = _j_winv_grad(system, cz)
         else:
             # u += Dx - Wz - C (Solver.cpp:138-141)
             cu = _j_add_prim(system, cu, cx, cz)
 
-        cx = solve(cz, cu, x_warm=cx)
-        prim = _j_prim_norm(system, cx, cz)
+        with span("step.global"):
+            cx = solve(cz, cu, x_warm=cx)
+            prim = _j_prim_norm(system, cx, cz)
 
-        if accel:
-            rejected = carry["prev"] < prim
+            if accel:
+                rejected = carry["prev"] < prim
 
-            def do_reject():
-                aa2 = anderson.replace(aa, _aa_flat(system, dz_))
-                cu2 = _j_add_prim(system, du_, dx_, dz_)
-                cx2 = solve(dz_, cu2)
-                prim2 = _j_prim_norm(system, cx2, dz_)
-                return dict(x=cx2, z=dz_, u=cu2, aa=aa2, prim=prim2)
+                def do_reject():
+                    aa2 = anderson.replace(aa, _aa_flat(system, dz_))
+                    cu2 = _j_add_prim(system, du_, dx_, dz_)
+                    cx2 = solve(dz_, cu2)
+                    prim2 = _j_prim_norm(system, cx2, dz_)
+                    return dict(x=cx2, z=dz_, u=cu2, aa=aa2, prim=prim2)
 
-            kept = dict(x=cx, z=cz, u=cu, aa=aa, prim=prim)
-            if system.solver is not None:
-                # dense: both branches, chosen on the device
-                cx, cz, cu, aa, prim = _select(
-                    rejected, do_reject(), kept).values()
-            else:
-                counts["host_reads"] += 1
-                if bool(rejected.any()):
+                kept = dict(x=cx, z=cz, u=cu, aa=aa, prim=prim)
+                if system.solver is not None:
+                    # dense: both branches, chosen on the device
                     cx, cz, cu, aa, prim = _select(
                         rejected, do_reject(), kept).values()
-        else:
-            rejected = torch.zeros_like(prim, dtype=torch.bool)
+                else:
+                    counts["host_reads"] += 1
+                    with span("sync"):
+                        any_rejected = bool(rejected.any())
+                    if any_rejected:
+                        cx, cz, cu, aa, prim = _select(
+                            rejected, do_reject(), kept).values()
+            else:
+                rejected = torch.zeros_like(prim, dtype=torch.bool)
 
         prev = prim
         ndx, ndu = cx, cu
         if accel:
-            ndz = _update_z(system, cx, cu)
+            with span("step.local"):
+                ndz = _update_z(system, cx, cu)
             aa, zflat = anderson.compute(aa, _aa_flat(system, ndz),
                                          _aa_reduce(system))
             counts["host_reads"] += 1
             cz = _aa_unflat(system, zflat, ndz)
         else:
             last_z = cz
-            cz = _update_z(system, cx, cu)
+            with span("step.local"):
+                cz = _update_z(system, cx, cu)
             ndz = cz
 
         # Diagnostic combined residual (Solver.cpp:216-238).
         if system.collect_comb:
-            if accel:
-                comb_x = solve(ndz, cu)
-                comb_z = _update_z(system, comb_x, cu)
-                comb = _j_comb(system, comb_x, comb_z, ndz)
-            else:
-                comb = _j_comb(system, cx, cz, last_z)
+            with span("step.comb"):
+                if accel:
+                    comb_x = solve(ndz, cu)
+                    comb_z = _update_z(system, comb_x, cu)
+                    comb = _j_comb(system, comb_x, comb_z, ndz)
+                else:
+                    comb = _j_comb(system, cx, cz, last_z)
         else:
             comb = torch.full_like(prim, float("inf"))
 
@@ -907,7 +919,9 @@ def _zxu_body(system: PhysicsSystem, consts, counts=None):
             counts["host_reads"] += 1
             # Frozen iterations (done) discard their result: no reject run.
             redo = rejected & ~done
-            if bool(redo.any()):
+            with span("sync"):
+                any_redo = bool(redo.any())
+            if any_redo:
                 ru, rx = carry["du"], carry["dx"]
                 rz = _update_z(system, rx, ru)
                 cu, cx, aa, cz, prim = _select(redo, dict(
@@ -1303,6 +1317,7 @@ class PhysicsSolver:
             out.append(SelfCollisionBatch.create(np.arange(n), dtype=dtype))
         return out
 
+    @spanned("setup.build")
     def initialize(self, settings: Optional[Settings] = None) -> bool:
         """Solver::initialize (Solver.cpp:373-498): element batches, the
         free/fixed split, and the prefactored global system (the dense
@@ -1387,6 +1402,7 @@ class PhysicsSolver:
         if not self.initialized:
             raise RuntimeError("initialize() must run before step()")
 
+    @spanned("step")
     def step(self) -> StepTrace:
         """One timestep (Solver::step). Updates x, v on the device and
         queues the residual trace; flush_traces()/save() fetch the history.
@@ -1498,7 +1514,9 @@ class PhysicsSolver:
             active, target, normal, overflow = _detect_self_contacts(
                 tuple(self.dynamic_colliders), self._x_dev, b.idx)
             self.stats["host_reads"] += 1
-            if not bool(overflow):
+            with span("sync"):
+                clear = not bool(overflow)
+            if clear:
                 break
             # A spatial-hash bucket exceeded its candidate cap, so contacts
             # may have been dropped. Escalate and detect again (the
