@@ -428,14 +428,27 @@ def solve_alm(system: GeometrySystem, init_x) -> GeometryTrace:
                          rejects=st["rj"], n_trials=st["trial"])
 
 
-def soft_energy_delta(system: GeometrySystem, delta):
+def soft_energy_delta(system: GeometrySystem, delta, caches):
     """soft_energy evaluated through the delta-form anchors; delta is the
-    loop state's (this rank's rows on a sharded system)."""
+    loop state's (this rank's rows on a sharded system). A batch with a
+    closest-point cache (``caches``, one entry per soft batch as the loop
+    state's ``cp``) projects through it, as the loop does: exact, refreshed
+    where its movement test asks (one host read, taken over every rank's
+    queries); a batch whose entry is None projects uncached. Returns
+    (energy, caches, host reads, refreshes)."""
     total = torch.zeros((), dtype=delta.dtype, device=delta.device)
-    for b, d in zip(system.soft, system.dx_soft(_full(system, delta))):
-        p = b.project(d)
+    out, reads, refreshes = [], 0, 0
+    for b, d, c in zip(system.soft, system.dx_soft(_full(system, delta)),
+                       caches):
+        if c is None:
+            p = b.project(d)
+        else:
+            p, c, refreshed = b.project_cached(d, c, _reducer(system))
+            reads += 1
+            refreshes += int(refreshed)
+        out.append(c)
         total = total + 0.5 * (_w2(b, d) * (d - p) ** 2).sum()
-    return _reduce(system, total)
+    return _reduce(system, total), tuple(out), reads, refreshes
 
 
 def soft_energy(system: GeometrySystem, x):
@@ -621,7 +634,11 @@ class ALMGeometrySolver:
                    chunk_iters: int = None):
         """Run the accept/reject loop, optionally in chunks of chunk_iters
         accepted iterations with carried state (one global runaway-trial
-        budget of 2*iters+4 over the whole solve). On a sharded solver the
+        budget of 2*iters+4 over the whole solve). The initial and final
+        soft energies project through the loop's closest-point caches:
+        ``stats["energy_refreshes"]`` counts the energies' cache refreshes,
+        ``cp_refreshes`` the loop's, and ``host_reads`` the reads of both
+        (the energies' cache tests included). On a sharded solver the
         per-solve anchors are made for this rank's rows and elements (the
         JAX package shards them again), and ``stats`` gains the collectives of
         the solve's trials and of the solution's gather (``collectives``),
@@ -631,7 +648,7 @@ class ALMGeometrySolver:
             raise RuntimeError("setup_ADMM must run before solve_ADMM")
         tdt = torch_dtype(self.dtype)
         self.stats = dict(trials=0, cg_iters=0, host_reads=0,
-                          cp_refreshes=0, solve_s=0.0)
+                          cp_refreshes=0, energy_refreshes=0, solve_s=0.0)
         if int(max_iter) < 1:
             self._solution = np.asarray(init_x, np.float64).copy()
             self.function_values, self.elapsed_time = [], []
@@ -661,15 +678,20 @@ class ALMGeometrySolver:
             x0=self._tensor(_own(sys0, x0_np)), t0_hard=t0_h, t0_soft=t0_s,
             Ax0=self._tensor(_own(sys0, Ax0)))
         x0 = self._tensor(_own(sys0, np.asarray(init_x)))
+        state = _alm_init_state(self.system, x0)
+        state["max_trials"] = 2 * int(max_iter) + 4
+        # The initial energy projects the first trial's points (delta 0)
+        # through the loop's fresh caches; the loop starts from the caches
+        # it leaves, built at those points.
         with span("solve.energy"):
-            e0 = float(soft_energy_delta(self.system, torch.zeros_like(x0)))
+            e0, state["cp"], e_reads, e_refreshes = soft_energy_delta(
+                self.system, state["x"], state["cp"])
+            e0 = float(e0)
         print(f"Init energy = {e0}")
 
         comm = None if sys0.shard is None else sys0.shard.comm
         c0 = ((comm.count, comm.nbytes, comm.seconds) if comm is not None
               else None)
-        state = _alm_init_state(self.system, x0)
-        state["max_trials"] = 2 * int(max_iter) + 4
         t = MicroTimer()
         fvs, rjs, times = [], [], [0.0]
         done = 0
@@ -717,7 +739,11 @@ class ALMGeometrySolver:
                               comm_bytes=comm.nbytes - c0[1],
                               comm_s=comm.seconds - c0[2])
         with span("solve.energy"):
-            ef = float(soft_energy_delta(self.system, delta))
+            ef, _, reads, refreshes = soft_energy_delta(self.system, delta,
+                                                        state["cp"])
+            ef = float(ef)
+        self.stats["host_reads"] += e_reads + reads
+        self.stats["energy_refreshes"] = e_refreshes + refreshes
         print(f"final energy = {ef}")
         print(f"solve time = {total:.3f}s for {len(fv)} accepted iterations")
         return trace

@@ -177,7 +177,8 @@ H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
 H100_F64_FLOPS = 34e12         # float64 outside the tensor cores
 ERICSON_FLOPS_PER_PAIR = 120   # Ericson test + select + distance, rounded up
 MAIN_Q = 65536                 # the group fast path's query tile
-# B1's tiles on the main path, all through the indexed entry:
+# B1's tiles on the main path (and the uncached 2-stage sweep's), all
+# through the indexed entry:
 # (queries, index columns G, sub); candidates K = G * sub
 ERICSON_SHAPES = {"group fast path": (MAIN_Q, 6, 16),
                   "group refresh": (8192, 48, 1), "2-stage": (4096, 48, 1)}
@@ -186,9 +187,11 @@ MAIN_N = 230400                # CG vector rows at MaleTorso scale
 SHARD_N = MAIN_N // 2          # one of two ranks' rows (phase 13)
 QUARTER_N = MAIN_N // 4        # one of four ranks' rows (phase 14)
 # the kernels of the subgroup-cache path (phases 4 and 5), and of the flat
-# cache with cached (9, K, Q) candidates (phase 4, second solve)
+# cache with cached (9, K, Q) candidates (phase 4, second solve: its fast
+# path is the plane entry and its refresh launches no kernel; the solve's
+# energies project through the cache, so the indexed entry does not run)
 MAIN_PATH_KERNELS = ("ericson_idx", "cg_update1", "cg_update2")
-CANDT_PATH_KERNELS = ("ericson", "ericson_idx", "cg_update1", "cg_update2")
+CANDT_PATH_KERNELS = ("ericson", "cg_update1", "cg_update2")
 SMALL_N_REF, CANDT_N_REF = 102, 60     # 20,402 and 6,962 triangles
 # phase 7: B1's shapes on the planarity scene (2,401 queries, 48 candidates
 # from a 9,800-triangle table); phase 8: the beams' C++ golden
@@ -663,17 +666,17 @@ def check_ericson_idx(ck, device, record):
 
 def ericson_launch_split(stats, n_queries):
     """B1 (indexed entry) launches of the main path by tile shape, from the
-    solve's counters: each cache refresh sweeps 8,192-query tiles, each
-    fast-path trial 65,536-query tiles, and the init/final energies
-    4,096-query 2-stage tiles."""
+    solve's counters: the trials and the init/final energies each project
+    through the subgroup cache once; a refresh (the loop's and the
+    energies') sweeps 8,192-query tiles, the fast path 65,536-query
+    tiles."""
     def tiles(shape):
         return -(-n_queries // ERICSON_SHAPES[shape][0])
 
-    refreshes = stats["cp_refreshes"]
-    return {"group fast path": (stats["trials"] - refreshes)
+    refreshes = stats["cp_refreshes"] + stats["energy_refreshes"]
+    return {"group fast path": (stats["trials"] + 2 - refreshes)
             * tiles("group fast path"),
-            "group refresh": refreshes * tiles("group refresh"),
-            "2-stage": 2 * tiles("2-stage")}
+            "group refresh": refreshes * tiles("group refresh")}
 
 
 def cg_inputs(n, c, dtype, device, seed):
@@ -1209,8 +1212,11 @@ def phase_planarity(ck):
           "planarity f32: non-finite function values")
     check(np.isfinite(pl_a).all() and pl_a.max() < pl_b.max(),
           "planarity f32: the max planarity error did not fall")
-    check(counts["ericson"] > 0 and counts["ericson_idx"] > 0,
-          f"planarity f32: a B1 entry was not launched: {counts}")
+    # every projection, the energies' too, goes through the candT cache:
+    # the plane entry on the fast path, no kernel in a refresh
+    check(counts["ericson"] > 0 and counts["ericson_idx"] == 0,
+          f"planarity f32: B1's plane entry not launched, or its indexed "
+          f"entry launched: {counts}")
 
     s_gpu, c64, secs_g = run_planarity(ck, "cuda", np.float64, 20)
     s_cpu, _, secs_c = run_planarity(ck, "cpu", np.float64, 20)
@@ -1228,8 +1234,9 @@ def phase_planarity(ck):
     check(rel <= 1e-8, f"planarity f64: function values differ by {rel}")
     check(s_gpu.anderson_reset == s_cpu.anderson_reset,
           "planarity f64: reject sequences differ")
-    check(c64["ericson"] > 0 and c64["ericson_idx"] > 0,
-          f"planarity f64: a B1 entry was not launched: {c64}")
+    check(c64["ericson"] > 0 and c64["ericson_idx"] == 0,
+          f"planarity f64: B1's plane entry not launched, or its indexed "
+          f"entry launched: {c64}")
     return counts
 
 

@@ -13,6 +13,9 @@
   shard) and per trial; a stray collective fails it. Every value the ranks
   branch on (function values, rejects, trial and CG counts) is bit-equal
   across the ranks.
+* The solve's soft energies through the closest-point cache (subgroup and
+  flat) at world 2 and world 3: every rank prints the unsharded solve's
+  energies and counts its energy refreshes.
 * The field-selection guard: a reference-surface batch whose query count
   equals its triangle (or group) count keeps its triangles whole.
 * Spawned gloo ranks in two tests: the wire-mesh app on the reference
@@ -28,6 +31,7 @@
 """
 
 import dataclasses
+import re
 import threading
 
 import jax
@@ -273,6 +277,76 @@ def test_dense_path_sharded_matches_unsharded_and_jax(references,
     # the AA inner products per trial; no CG
     assert st["cg_iters"] == 0
     assert st["collectives"] == st["trials"] * 5 + 1
+
+
+def _wavy_grid(m, lo=-1.0, hi=16.0):
+    """z = 0.2 sin x cos y on an m x m vertex grid: 2 (m-1)^2 triangles
+    (4,418 at m = 48: the flat closest-point cache)."""
+    u = np.linspace(lo, hi, m)
+    X, Y = np.meshgrid(u, u, indexing="ij")
+    verts = np.stack([X.ravel(), Y.ravel(),
+                      (0.2 * np.sin(X) * np.cos(Y)).ravel()], 1)
+    i, j = np.meshgrid(np.arange(m - 1), np.arange(m - 1), indexing="ij")
+    a = (i * m + j).ravel()
+    faces = np.concatenate([np.stack([a, a + m, a + 1], 1),
+                            np.stack([a + m, a + m + 1, a + 1], 1)])
+    return verts, faces
+
+
+def _build_on_surface(solver, ref):
+    """The scene's grid and hard constraints on the CG path, held to a
+    reference surface (soft) through the subgroup cache ("group", 20,402
+    triangles) or the flat cache ("flat", 4,418)."""
+    verts, edges = _noisy_quad_grid()
+    n = len(verts)
+    solver.add_hard_constraint(tc.EdgeLengthBatch.create(edges, 1.0, 0.9))
+    tips = edges[: n // 2, 0]
+    tri = np.stack([tips, (tips + 1) % n, (tips + 2) % n], axis=1)
+    solver.add_hard_constraint(tc.AngleBatch.create(
+        tri, 1.0, np.pi / 4, 3 * np.pi / 4))
+    rv, rf = _height_field() if ref == "group" else _wavy_grid(48)
+    solver.add_soft_constraint(tc.RefSurfaceBatch.create(np.arange(n), 1.0,
+                                                         rv, rf))
+    solver.setup_ADMM(n, penalty_param=100.0, linear_solver="cg")
+    return solver, verts
+
+
+def _printed(out, what):
+    """The energies (``what``: "Init" or "final") the solves printed; the
+    ranks' lines may interleave, each number is printed whole."""
+    num = r"([-+]?\d+\.?\d*(?:e[-+]?\d+)?)"
+    return [float(v) for v in re.findall(what + r" energy = " + num, out)]
+
+
+@pytest.mark.parametrize("ref", ["group", "flat"])
+@pytest.mark.parametrize("world", [2, 3])
+def test_sharded_energies_match_unsharded(world, ref, thread_comm, capsys):
+    """The solve's energies through the closest-point cache on row shards:
+    every rank prints the unsharded solve's initial and final energies
+    (rtol 1e-12: the ranks' partials are summed in another order) and
+    counts its energy refreshes (the cache test is taken over every rank's
+    queries)."""
+    s, verts = _build_on_surface(ALMGeometrySolver(device="cpu"), ref)
+    capsys.readouterr()
+    _solve(s, verts)
+    out = capsys.readouterr().out
+    want = _printed(out, "Init") + _printed(out, "final")
+    st = s.stats
+    assert len(want) == 2 and st["energy_refreshes"] in (1, 2)
+    solvers = []
+    for mesh in _meshes(world):
+        r, _ = _build_on_surface(ALMGeometrySolver(device="cpu"), ref)
+        r.shard(mesh)
+        solvers.append(r)
+    _in_threads([lambda r=r: _solve(r, verts) for r in solvers])
+    out = capsys.readouterr().out
+    for what, e in zip(("Init", "final"), want):
+        got = _printed(out, what)
+        assert len(got) == world
+        np.testing.assert_allclose(got, e, rtol=1e-12)
+    for r in solvers:
+        for k in ("energy_refreshes", "cp_refreshes", "trials"):
+            assert r.stats[k] == st[k], k
 
 
 def test_pcg_collectives_per_iteration(thread_comm):

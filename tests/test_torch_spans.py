@@ -176,10 +176,11 @@ def test_wire_mesh_solve_spans():
         assert all(spans[i][3] == loops[0] for i in idx)
     syncs = _by_name(spans, "sync")
     parents = [spans[spans[i][3]][0] for i in syncs]
-    # the loop test, the cache test (local), the CG tests (global) and the
-    # Gram read (the loop itself)
-    assert set(parents) == {"alm.loop", "local", "global"}
+    # the loop test, the cache test (local), the CG tests (global), the
+    # Gram read (the loop itself) and the two energies' cache tests
+    assert set(parents) == {"alm.loop", "local", "global", "solve.energy"}
     assert parents.count("local") == on.stats["trials"]
+    assert parents.count("solve.energy") == 2
     # the loop's sync spans are the reads stats count, no more, no fewer
     assert len(syncs) == on.stats["host_reads"]
 
