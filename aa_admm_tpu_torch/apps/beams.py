@@ -11,7 +11,9 @@ end-pinned, with the pins stretched +/- x by 1 m/s each frame
 unless device="cpu" (or --cpu), and writes result/residual-{m|no}.txt like
 the reference's testAndersonADMM harness; --log-x-star first writes
 result/solverlog-{m|no}.txt (``log_x_star``). ``cubes`` scales each beam's
-block counts (the published scene is (12, 3, 3)).
+block counts (the published scene is (12, 3, 3)). ``build_sweep`` runs the
+scene as a parameter sweep: S copies, each pulled at its own pin speed,
+stepped together as one tiled ensemble (parallel/ensemble.py).
 """
 
 from __future__ import annotations
@@ -21,11 +23,13 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 from ..core.config import AccelType, Lame, Settings
 from ..core.factory import make_tet_blocks
 from ..core.solverlog import SolverLog
-from ..solver.physics import PhysicsSolver, UpdateOrder
+from ..parallel.ensemble import ensemble_run_frames, tile_system
+from ..solver.physics import PhysicsSolver, StepTrace, UpdateOrder, _counts
 
 
 def build_scene(settings: Settings, order=UpdateOrder.XZU, device=None,
@@ -71,6 +75,60 @@ def build_scene(settings: Settings, order=UpdateOrder.XZU, device=None,
         vel[pid, 0] = 1.0 if lab else -1.0
     stretch.pin_velocity = vel
     return solver, stretch
+
+
+class Sweep:
+    """S copies of one beams scene, each pulled by its own pin speed,
+    stepped together as one tiled system (parallel/ensemble.py). Scene s
+    is the published scene with `speeds[s]` m/s where beams.cpp pulls at
+    1 m/s: its pins start one such stretch from rest (beams.cpp:160) and
+    move by dt * speeds[s] before each frame's step.
+
+    ``xs``, ``vs`` ((S, n, 3) device tensors) are the scenes' positions
+    and velocities, ``trace`` the last frame's StepTrace (every field led
+    by S), ``counts`` the host reads and CG iterations of every frame,
+    ``elements`` the element count of one scene."""
+
+    def __init__(self, solver: PhysicsSolver, speeds, pins, sides):
+        system = solver.system
+        x0 = solver._x_dev
+        S, n = len(speeds), system.n_verts
+        vel = np.zeros((S, n, 3))
+        vel[:, pins, 0] = np.outer(np.asarray(speeds, np.float64), sides)
+        rest = np.zeros((n, 3))
+        rest[pins] = solver._all_verts()[pins]
+        self.system = system
+        self.elements = sum(b.w.shape[0] for b in system.batches)
+        self.pin_vel = torch.from_numpy(vel).to(x0.device, x0.dtype)
+        self.pps = (torch.from_numpy(rest).to(x0.device, x0.dtype)
+                    + system.dt * self.pin_vel)
+        self.xs = x0.expand(S, n, 3).clone()
+        self.vs = torch.zeros_like(self.xs)
+        self.trace = None
+        self.counts = _counts()
+        tile_system(system, S)      # built now, with the scene
+
+    def frame(self) -> StepTrace:
+        """Every scene one frame: its pins moved by dt times its speed,
+        then one tiled step. Returns the frame's StepTrace."""
+        self.xs, self.vs, self.pps, tr = ensemble_run_frames(
+            self.system, self.xs, self.vs, self.pps, 1, self.pin_vel,
+            self.counts)
+        self.trace = StepTrace(*(a[:, 0] for a in tr))
+        if self.xs.is_cuda:
+            torch.cuda.synchronize(self.xs.device)
+        return self.trace
+
+
+def build_sweep(settings: Settings, speeds, device=None, cubes=(12, 3, 3)):
+    """The beams scene swept over its pin speed: one scene per entry of
+    `speeds` (m/s; the published scene pulls at 1). Returns (solver, Sweep):
+    the solver of one scene as ``build_scene`` builds it (never stepped
+    here), and the Sweep whose ``frame()`` advances every scene."""
+    solver, stretch = build_scene(settings, device=device, cubes=cubes)
+    side = stretch.pin_velocity[:, 0]          # +-1 on the pins, else 0
+    pins = np.nonzero(side)[0]
+    return solver, Sweep(solver, speeds, pins, side[pins])
 
 
 def log_x_star(settings: Settings, result_dir: str = "result",

@@ -62,6 +62,7 @@ import torch.distributed as dist
 from .. import resolve_device
 from ..core.config import AccelType, Lame, Settings
 from ..core.factory import make_tet_blocks
+from ..core.timers import span, spanned
 from ..solver.physics import (PhysicsSolver, PhysicsSystem, StepTrace,
                               UpdateOrder, _counts, step_xzu, step_zxu)
 
@@ -98,29 +99,34 @@ def tile_system(system: PhysicsSystem, S: int) -> PhysicsSystem:
     (s+1)*n - 1 and element columns s*E ... (s+1)*E - 1 are scene s. The
     global step's inverse (or CG diagonal) is shared, as the scenes solve
     as the columns of one block. Cached per (system, S), so its CUDA graphs
-    are captured once. A sharded system tiles its own element ranges."""
+    are captured once; the first build for an S runs inside the span
+    ``setup.build``. A sharded system tiles its own element ranges."""
     if S == 1:
         return system
     if system.n_scenes != 1:
         raise ValueError("tile_system takes a system of one scene")
     cache = system.__dict__.setdefault("_tiled", {})
     if S not in cache:
-        n = system.n_verts
+        with span("setup.build"):
+            n = system.n_verts
 
-        def tile_batch(b):
-            return dataclasses.replace(
-                b, inv_idx=None, inv_mask=None,
-                **{k: _tiled(getattr(b, k), S, n) for k in _elem_fields(b)})
-        wind = system.wind
-        if wind is not None:
-            wind = dataclasses.replace(wind, faces=_tiled(wind.faces, S, n),
-                                       inv_idx=None, inv_mask=None)
-        cache[S] = dataclasses.replace(
-            system, masses=system.masses.repeat(S),
-            free_mask=system.free_mask.repeat(S),
-            free_idx=_tiled(system.free_idx, S, n),
-            batches=tuple(tile_batch(b) for b in system.batches), wind=wind,
-            n_verts=S * n, n_free=S * system.n_free, n_scenes=S)
+            def tile_batch(b):
+                return dataclasses.replace(
+                    b, inv_idx=None, inv_mask=None,
+                    **{k: _tiled(getattr(b, k), S, n)
+                       for k in _elem_fields(b)})
+            wind = system.wind
+            if wind is not None:
+                wind = dataclasses.replace(
+                    wind, faces=_tiled(wind.faces, S, n), inv_idx=None,
+                    inv_mask=None)
+            cache[S] = dataclasses.replace(
+                system, masses=system.masses.repeat(S),
+                free_mask=system.free_mask.repeat(S),
+                free_idx=_tiled(system.free_idx, S, n),
+                batches=tuple(tile_batch(b) for b in system.batches),
+                wind=wind, n_verts=S * n, n_free=S * system.n_free,
+                n_scenes=S)
     return cache[S]
 
 
@@ -137,9 +143,11 @@ def ensemble_step(order: str = "xzu"):
     ensemble.py:89-95): ``(system, xs, vs, pps[, counts]) -> (xs, vs,
     StepTrace)`` with xs, vs, pps (S, n, 3) and every StepTrace field led
     by S. The scenes step as one tiled system. `counts` (a dict with
-    host_reads and cg_iters) accumulates the batched step's counts."""
+    host_reads and cg_iters) accumulates the batched step's counts. Each
+    call runs inside the span ``ensemble.step``."""
     fn = _step_fn(order)
 
+    @spanned("ensemble.step")
     def step(system: PhysicsSystem, xs, vs, pps, counts=None):
         if system.order != order:
             raise ValueError(f"a {system.order} system in a {order} step")
