@@ -18,6 +18,11 @@ replace the JAX package's three Pallas kernels
   all-rank rz), one launch each. None waits on a grid-wide barrier.
   ``cg_dot`` and ``cg_update1_given`` take an optional ``out`` (c,) tensor
   (a row of a larger buffer, say) for their result.
+* ``tet_prox`` / ``tet_grad`` — the physics local step of a tet batch, the
+  prox and the energy gradient of one material (linear, NeoHookean or
+  StVK) on a plane-form (9, E) block, one thread an element (replaces no
+  TPU kernel: the JAX package leaves this step to XLA). Their twins are
+  the batched torch math of ops/prox.py and ops/svd3.py (Jacobi SVD).
 
 Dispatch is by the tensors' device alone: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the twin. Nothing falls back.
@@ -35,8 +40,8 @@ caller has current.
 Launch counters (``ericson_launches`` for the plane entry,
 ``ericson_idx_launches`` for the indexed entry, ``cg_update1_launches``,
 ``cg_update2_launches``, ``cg_dot_launches``, ``cg_update1_given_launches``,
-``cg_update2_given_launches``) count one per wrapper call that launched its
-kernel (one CUDA launch each).
+``cg_update2_given_launches``, ``tet_prox_launches``, ``tet_grad_launches``)
+count one per wrapper call that launched its kernel (one CUDA launch each).
 
 Cached state, per process: B1's padded copy of each triangle table (a few
 tables, rebuilt when the table changes in place; made on the table's card)
@@ -59,10 +64,14 @@ from pathlib import Path
 
 import torch
 
+from . import prox as proxops
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = {"ericson": "ericson.cu", "cg_update": "cg_update.cu"}
+SOURCES = {"ericson": "ericson.cu", "cg_update": "cg_update.cu",
+           "tet_prox": "tet_prox.cu"}
+TET_KINDS = ("linear", "neohookean", "stvk")
 # -fmad=false: no fused multiply-adds, so each kernel rounds op by op like
 # its twin (the Ericson sweep's candidate choice then matches the twin's on
 # near-ties; both kernels are bound by bytes, not by arithmetic).
@@ -76,6 +85,8 @@ cg_update2_launches = 0
 cg_dot_launches = 0
 cg_update1_given_launches = 0
 cg_update2_given_launches = 0
+tet_prox_launches = 0
+tet_grad_launches = 0
 
 _LIBS: dict = {}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -95,6 +106,10 @@ _ARGTYPES = {
     "cg_given_max_blocks": [_I, _I, _P],
     "cg_update2_given": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "cg_update2_given_max_blocks": [_I, _I, _P],
+    **{f"tet_prox_{kind}": [_P, _P, _P, _P, _P, _LL, _P]
+       for kind in TET_KINDS},
+    **{f"tet_grad_{kind}": [_P, _P, _P, _P, _P, _P, _LL, _P]
+       for kind in TET_KINDS},
 }
 _LIB_OF = {"ericson_candidates": "ericson", "ericson_candidates_idx": "ericson",
            "cg_update1": "cg_update", "cg_update1_max_blocks": "cg_update",
@@ -102,7 +117,8 @@ _LIB_OF = {"ericson_candidates": "ericson", "ericson_candidates_idx": "ericson",
            "cg_dot": "cg_update",
            "cg_update1_given": "cg_update", "cg_update2_given": "cg_update",
            "cg_given_max_blocks": "cg_update",
-           "cg_update2_given_max_blocks": "cg_update"}
+           "cg_update2_given_max_blocks": "cg_update",
+           **{e: "tet_prox" for e in _ARGTYPES if e.startswith("tet_")}}
 # B1: lanes per query are raised (powers of two up to 32) until about this
 # many threads are in flight: four 256-thread blocks on each of 132 SMs.
 ERICSON_TARGET_THREADS = 131072
@@ -128,11 +144,11 @@ def reset_launch_counts():
     global ericson_launches, ericson_idx_launches
     global cg_update1_launches, cg_update2_launches
     global cg_dot_launches, cg_update1_given_launches
-    global cg_update2_given_launches
+    global cg_update2_given_launches, tet_prox_launches, tet_grad_launches
     ericson_launches = ericson_idx_launches = 0
     cg_update1_launches = cg_update2_launches = 0
     cg_dot_launches = cg_update1_given_launches = 0
-    cg_update2_given_launches = 0
+    cg_update2_given_launches = tet_prox_launches = tet_grad_launches = 0
 
 
 def launch_counts() -> dict:
@@ -140,7 +156,8 @@ def launch_counts() -> dict:
             "cg_update1": cg_update1_launches,
             "cg_update2": cg_update2_launches, "cg_dot": cg_dot_launches,
             "cg_update1_given": cg_update1_given_launches,
-            "cg_update2_given": cg_update2_given_launches}
+            "cg_update2_given": cg_update2_given_launches,
+            "tet_prox": tet_prox_launches, "tet_grad": tet_grad_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -665,3 +682,78 @@ def cg_update2_given(rz, rz_old, z, p, rr_prev, thresh):
             z.data_ptr(), p.data_ptr(), n, c,
             cg2_given_blocks(n, c, p.dtype, p.device))
     cg_update2_given_launches += 1
+
+
+# ---------------------------------------------------------------------------
+# The tet batches' local step: prox and gradient, one launch a call
+# ---------------------------------------------------------------------------
+
+_TET_PROX = {"linear": proxops.prox_tet_linear,
+             "neohookean": proxops.prox_tet_neohookean,
+             "stvk": proxops.prox_tet_stvk}
+_TET_GRAD = {"linear": proxops.grad_tet_linear,
+             "neohookean": proxops.grad_tet_neohookean,
+             "stvk": proxops.grad_tet_stvk}
+
+
+def _tet_twin(fn, block, *args):
+    """fn of ops/prox.py on a plane-form (9, E) block's (E, 3, 3) view,
+    back in plane form (as TetBatch's CPU path calls it)."""
+    E = block.shape[1]
+    return fn(block.T.reshape(E, 3, 3), *args).reshape(E, 9).T
+
+
+def tet_prox_plain(v, mu, lam, k, kind):
+    """Twin of tet_prox: the material's prox of ops/prox.py (Jacobi SVD)."""
+    return _tet_twin(_TET_PROX[kind], v, mu, lam, k)
+
+
+def tet_grad_plain(z, mu, lam, k, vol, kind):
+    """Twin of tet_grad: the material's gradient of ops/prox.py."""
+    return _tet_twin(_TET_GRAD[kind], z, mu, lam, k, vol)
+
+
+def _check_tet(entry, block, params, kind) -> bool:
+    """Checks a call of tet_prox or tet_grad on any device; True where it
+    launches (CUDA), False where the twin runs (CPU)."""
+    _require(kind in TET_KINDS, f"{entry}: kind must be one of {TET_KINDS}")
+    _require(block.dim() == 2 and block.shape[0] == 9,
+             f"{entry}: the block must be (9, E) in plane form")
+    E = block.shape[1]
+    for p in params:
+        _require(p.shape == (E,), f"{entry}: per-element parameters must be "
+                                  f"(E,) with the block's E")
+    _require(block.is_contiguous(), f"{entry}: the block must be contiguous")
+    return _on_cuda([block, *params], entry)
+
+
+def tet_prox(v, mu, lam, k, kind):
+    """The prox of one tet material on a plane-form (9, E) block v (a
+    contiguous (9, E) tensor) with per-element mu, lam, k (E,): on CUDA one
+    launch of csrc/tet_prox.cu, which returns a new contiguous block; on
+    the CPU the twin (ops/prox.py). kind: linear | neohookean | stvk."""
+    global tet_prox_launches
+    if not _check_tet("tet_prox", v, (mu, lam, k), kind):
+        return tet_prox_plain(v, mu, lam, k, kind)
+    out = torch.empty_like(v)
+    if v.shape[1]:
+        _launch(f"tet_prox_{kind}", v.dtype, v.device, v.data_ptr(),
+                mu.data_ptr(), lam.data_ptr(), k.data_ptr(), out.data_ptr(),
+                v.shape[1])
+        tet_prox_launches += 1
+    return out
+
+
+def tet_grad(z, mu, lam, k, vol, kind):
+    """dU/dF * vol of one tet material at a plane-form (9, E) block z, as
+    tet_prox: one launch on CUDA, the twin on the CPU."""
+    global tet_grad_launches
+    if not _check_tet("tet_grad", z, (mu, lam, k, vol), kind):
+        return tet_grad_plain(z, mu, lam, k, vol, kind)
+    out = torch.empty_like(z)
+    if z.shape[1]:
+        _launch(f"tet_grad_{kind}", z.dtype, z.device, z.data_ptr(),
+                mu.data_ptr(), lam.data_ptr(), k.data_ptr(), vol.data_ptr(),
+                out.data_ptr(), z.shape[1])
+        tet_grad_launches += 1
+    return out

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.config import Lame
+from . import cuda_kernels
 from . import prox as proxops
 from ._batchutil import GatherAdjoint, _host_mirror, _t
 from .sdf import SdfScene
@@ -49,7 +50,12 @@ def p2m(p, zdim):
 @dataclasses.dataclass(frozen=True)
 class TetBatch(GatherAdjoint):
     """All tets of one material; weight w = sqrt(k*vol) per element
-    (TetEnergyTerm.cpp:63-64)."""
+    (TetEnergyTerm.cpp:63-64). On a CUDA block with the Jacobi SVD (not
+    ``graphed``), prox and grad are one launch each of csrc/tet_prox.cu
+    (cuda_kernels.tet_prox / tet_grad); on the CPU, and with
+    svd_method="lapack" (torch.linalg.svd), they are the torch math of
+    ops/prox.py, on the block as the solver hands it (torch's CPU math
+    rounds by layout)."""
 
     tets: torch.Tensor     # (E, 4) int64
     Dm_inv: torch.Tensor   # (E, 3, 3) inverse rest-edge matrix
@@ -116,8 +122,18 @@ class TetBatch(GatherAdjoint):
         if self.kind not in ("linear", "neohookean", "stvk"):
             raise ValueError(self.kind)
 
+    @property
+    def graphed(self):
+        """Whether the physics step replays prox and grad from CUDA graphs:
+        not with the Jacobi SVD, where each call on the card is one kernel
+        launch."""
+        return self.svd_method != "jacobi"
+
     def prox(self, v):
         self._check_kind()
+        if v.is_cuda and not self.graphed:
+            return cuda_kernels.tet_prox(v.contiguous(), self.mu, self.lam,
+                                         self.k, self.kind)
         vm = p2m(v, self.zdim)
         fn = {"linear": proxops.prox_tet_linear,
               "neohookean": proxops.prox_tet_neohookean,
@@ -127,6 +143,9 @@ class TetBatch(GatherAdjoint):
     def grad(self, z):
         """dU/dF * vol at z (EnergyTerm::get_all_gradient path)."""
         self._check_kind()
+        if z.is_cuda and not self.graphed:
+            return cuda_kernels.tet_grad(z.contiguous(), self.mu, self.lam,
+                                         self.k, self.vol, self.kind)
         zm = p2m(z, self.zdim)
         if self.kind == "linear":
             out = proxops.grad_tet_linear(zm, self.mu, self.lam, self.k,
@@ -170,6 +189,7 @@ class TriBatch(GatherAdjoint):
     inv_mask: Optional[torch.Tensor] = None  # (n, K)
 
     zdim = (3, 2)
+    graphed = True   # prox and grad replay CUDA graphs in the physics step
 
     def _adjoint_index(self):
         return self.tris, None, self.w.dtype
@@ -250,6 +270,7 @@ class _VertexTerms(GatherAdjoint):
     half of the pin and collision batches."""
 
     zdim = (3,)
+    graphed = True   # prox and grad replay CUDA graphs in the physics step
 
     def deform(self, x):
         return x[self.idx].T                               # (3, E)

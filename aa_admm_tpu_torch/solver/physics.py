@@ -36,15 +36,17 @@ and one per self-contact detection (its overflow flag); the instrumented
 steps read each residual as well, and a chunked step synchronizes once per
 chunk. ``PhysicsSolver.stats["host_reads"]`` counts the reads.
 
-Where XLA fuses the local step into a few kernels, eager PyTorch launches
-each elementwise op of the batched SVD and Newton: about 15,000 launches
-per accelerated iteration on beams, paced by the host. On CUDA tensors the
-per-batch prox and gradient and the CG operator therefore run as CUDA
-graphs, each captured on first use for its system (fixed shapes, no host
-reads inside) and replayed with its inputs copied in (``_graphed``); the
-kernels and their results are those of the eager calls. Self-contacts
-change every step: the solver copies them into the SelfCollisionBatch's own
-tensors in place, so one system and its graphs serve every step. Every
+Where XLA fuses the local step into a few kernels, eager PyTorch would
+launch each elementwise op of the batched SVD and Newton: about 15,000
+launches per accelerated iteration on beams. On CUDA tensors a tet batch's
+prox and gradient are therefore one hand-written kernel launch each
+(csrc/tet_prox.cu, ``_local``), and the other batches' prox and gradient
+and the CG operator run as CUDA graphs, each captured on first use for its
+system (fixed shapes, no host reads inside) and replayed with its inputs
+copied in (``_graphed``); the kernels and their results are those of the
+eager calls. Self-contacts change every step: the solver copies them into
+the SelfCollisionBatch's own tensors in place, so one system and its
+graphs serve every step. Every
 scatter of the step (the batches' adjoints, the jacobi wind) is a gather
 over an inverse table built when its batch is made (ops/_batchutil.py), so
 two runs of one step from one state agree bit for bit on the card too (a
@@ -436,14 +438,23 @@ def _graphed(system: PhysicsSystem, key, fn, x):
 # Shared per-step computations
 # ----------------------------------------------------------------------------
 
+def _local(system: PhysicsSystem, key, b, fn, x):
+    """Batch b's prox or gradient fn(x): replayed from a graph (_graphed)
+    where b.graphed, else called as it is (a tet batch with the Jacobi SVD
+    is one kernel launch a call on the card, ops/cuda_kernels.py tet_prox
+    and tet_grad, which a graph would only wrap in a copy in and a clone
+    out)."""
+    return _graphed(system, key, fn, x) if b.graphed else fn(x)
+
+
 def _prox_all(system: PhysicsSystem, vs):
     # A shard may hold no element of a batch: its block is empty.
-    return tuple(_graphed(system, ("prox", i), b.prox, v) if v.shape[-1]
+    return tuple(_local(system, ("prox", i), b, b.prox, v) if v.shape[-1]
                  else v for i, (b, v) in enumerate(zip(system.batches, vs)))
 
 
 def _grad_all(system: PhysicsSystem, zs):
-    return tuple(_graphed(system, ("grad", i), b.grad, z) if z.shape[-1]
+    return tuple(_local(system, ("grad", i), b, b.grad, z) if z.shape[-1]
                  else z for i, (b, z) in enumerate(zip(system.batches, zs)))
 
 
@@ -609,10 +620,11 @@ def _xzu_body(system: PhysicsSystem, consts, counts=None):
         dx_, dz_, du_ = carry["dx"], carry["dz"], carry["du"]
         aa = carry["aa"]
 
-        # Spans: step.local around the gradient's and the prox's graph
-        # replays, step.global around the x-solve with its residual and
-        # reject branch, step.comb around the whole combined residual (its
-        # own solve and z-update open no span of their own).
+        # Spans: step.local around the gradient and the prox (kernel
+        # launches and graph replays), step.global around the x-solve with
+        # its residual and reject branch, step.comb around the whole
+        # combined residual (its own solve and z-update open no span of
+        # their own).
         if accel:
             # u <- W^-1 grad U(z) (Solver.cpp:127-133)
             with span("step.local"):

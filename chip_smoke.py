@@ -19,7 +19,12 @@ non-zero before the final result line):
      1..4, equal bits on a repeat and under CUDA-graph replay; both shares
      timed; B3 and cg_update2_given also in turns against the kernels they
      replaced and beside the floor (an empty kernel over the same grid, one
-     pass over the same bytes);
+     pass over the same bytes); the tet batches' local step (tet_prox and
+     tet_grad, every material, f64 and f32) on the beams scene's own
+     deformation gradients after one accelerated frame, E = 540 a batch
+     and the 8-scene sweep's tiled 4,320, each element within 1e-12 (f64)
+     or 1e-5 (f32) of its largest entry, timed at f64 beside the twin's
+     CUDA-graph replay;
   4. a small float64 wire-mesh solve on the CG path (group closest-point
      cache, reference > 20,000 triangles) on the GPU and on the CPU through
      the port: function values and solution must agree; then the same on
@@ -44,7 +49,8 @@ non-zero before the final result line):
   8. physics, float64: one non-accelerated step of the published beams
      scene on the GPU and the CPU (residuals must agree, and the head must
      match the C++ golden of tests/golden/), ten Anderson-accelerated frames
-     on the GPU (the pins must move with the stretch), a torch.profiler
+     on the GPU (the pins must move with the stretch; the tet kernels'
+     launches in them are the kernels' record), a torch.profiler
      breakdown of ten accelerated iterations, and one
      accelerated step of the beams built from 48 x 12 x 12 cubes, which
      takes the CG path;
@@ -1000,6 +1006,87 @@ def check_cg_given(ck, device, record, variants):
                                     library_ms=lib_ms)
 
 
+TET_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def tet_blocks(device):
+    """[(batch, its (9, E) deformation-gradient block)] of the beams
+    scene's tet batches after one accelerated frame on the card: E = 540
+    a batch, then the same batches tiled for the 8-scene sweep (E =
+    4,320)."""
+    from aa_admm_tpu_torch.apps import beams
+    from aa_admm_tpu_torch.parallel.ensemble import tile_system
+
+    s = beams_settings(True)
+    solver, stretch = beams.build_scene(s, device=device)
+    stretch(s.timestep_s)
+    solver.step()
+    system, x = solver.system, solver._x_dev
+    out = []
+    for sysm, pos in ((system, x), (tile_system(system, 8), x.repeat(8, 1))):
+        out += [(b, F) for b, F in zip(sysm.batches, sysm.deform(pos))
+                if b.zdim == (3, 3)]
+    return out
+
+
+def check_tet(ck, device, record):
+    """tet_prox and tet_grad against their twins on the CPU (tet_prox_plain,
+    tet_grad_plain) for every material, f64 and f32, on the beams scene's
+    blocks (tet_blocks): each element within TET_RTOL of its largest
+    |entry|. Then, at f64 (the main path's), the device ms of one call (a
+    CUDA-graph replay of 50) beside the twin's on the card (a replay of 3)
+    and the bound (bytes read and written once; the twin's elementwise
+    results an element as operations). The record holds, per entry, the
+    means over the three materials at E = 540 (an iteration calls each
+    material alike) and the f64 max abs err there."""
+    from tools.port_tet_prox_cost import elementwise_per_element
+
+    per = {"tet_prox": [], "tet_grad": []}
+    worst = {(n, d): 0.0 for n in per for d in TET_RTOL}
+    abs_err = {n: 0.0 for n in per}
+    for b, F in tet_blocks(device):
+        E = F.shape[1]
+        for dtype in TET_RTOL:
+            v = F.to(dtype).contiguous()
+            p = [t.to(dtype) for t in (b.mu, b.lam, b.k, b.vol)]
+            for name, kern, twin, args in (
+                    ("tet_prox", ck.tet_prox, ck.tet_prox_plain, p[:3]),
+                    ("tet_grad", ck.tet_grad, ck.tet_grad_plain, p)):
+                out = kern(v, *args, b.kind).cpu().double()
+                ref = twin(v.cpu(), *[a.cpu() for a in args],
+                           b.kind).double()
+                diff = (out - ref).abs()
+                rel = float((diff / ref.abs().amax(0).clamp_min(1e-300))
+                            .max())
+                check(rel <= TET_RTOL[dtype],
+                      f"{name} {b.kind} E={E} {dtype}: {rel:.3e} of an "
+                      f"element's largest entry")
+                worst[name, dtype] = max(worst[name, dtype], rel)
+                if dtype != torch.float64:
+                    continue
+                if E == 540:
+                    abs_err[name] = max(abs_err[name], float(diff.max()))
+                ms = device_ms(lambda: kern(v, *args, b.kind), 50)
+                pl = device_ms(lambda: twin(v, *args, b.kind), 3, 3)
+                ops = elementwise_per_element(
+                    lambda a: twin(a, *args, b.kind), v, E)
+                bd, by = bound_ms((18 + len(args)) * E * 8, ops * E, dtype)
+                print(f"  {name} {b.kind} E={E} f64: kernel {ms:.4f} ms, "
+                      f"twin {pl:.4f} ms (device, CUDA graph; {pl / ms:.0f}"
+                      f"x); bound {bd:.5f} ms ({by}, {bd / ms:.1%} of it)")
+                if E == 540:
+                    per[name].append((ms, pl, bd, by))
+    for name, rows in per.items():
+        ms, pl, bd = (sum(r[i] for r in rows) / len(rows) for i in range(3))
+        record[name] = dict(ms=ms, plain_ms=pl, bound_ms=bd,
+                            bound_by=max(rows, key=lambda r: r[2])[3],
+                            max_abs_err=abs_err[name])
+    print("  tet_prox, tet_grad: linear, NeoHookean and StVK on the beams "
+          "blocks (E = 540 and 4,320) match the twins, worst of an "
+          "element's largest entry " + ", ".join(
+              f"{n} {str(d)[6:]} {w:.2e}" for (n, d), w in worst.items()))
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the solve
 # ---------------------------------------------------------------------------
@@ -1328,16 +1415,20 @@ def phase_physics(ck):
           "beams: GPU and CPU positions differ")
     check(head < 1e-5, f"beams: the head differs from the C++ golden by {head}")
 
-    # ten Anderson-accelerated frames on the GPU
+    # ten Anderson-accelerated frames on the GPU, the tet kernels' launches
+    # in them counted alone
     frames = 10
     s = beams_settings(True)
     solver, stretch = beams.build_scene(s, device="cuda")
     x_orig = np.concatenate(solver.verts)
     pins = sorted(solver.pins)
+    before = ck.launch_counts()
     for _ in range(frames):
         stretch(s.timestep_s)
         solver.step()
     solver.flush_traces()
+    tet = {n: ck.launch_counts()[n] - before[n]
+           for n in ("tet_prox", "tet_grad")}
     ms = np.asarray(solver.step_ms)
     n_it = len(solver.step_prim)
     moved = (solver.x[pins, 0] - x_orig[pins, 0]) * np.sign(x_orig[pins, 0])
@@ -1346,7 +1437,12 @@ def phase_physics(ck):
           f"{np.median(ms):.1f}), {ms.sum() / n_it:.2f} ms per ADMM iteration "
           f"({n_it} recorded), {sum(solver.step_reject) / frames:.1f} "
           f"rejects/step, {solver.stats['host_reads'] / frames:.0f} host "
-          f"reads/step")
+          f"reads/step; tet kernels: {tet['tet_prox']} prox and "
+          f"{tet['tet_grad']} gradient launches ({tet['tet_prox'] / frames:.0f}"
+          f" and {tet['tet_grad'] / frames:.0f} a step of {s.admm_iters} "
+          f"iterations)")
+    check(tet["tet_prox"] > 0 and tet["tet_grad"] > 0,
+          "beams AA: the tet kernels did not launch")
     check(np.isfinite(solver.x).all(), "beams AA: non-finite positions")
     # build_scene places the pins once, then each frame moves them by dt
     want = (frames + 1) * s.timestep_s
@@ -1381,8 +1477,9 @@ def phase_physics(ck):
           "not fall within the step")
     check(np.isfinite(big.x).all(), "beams CG size: non-finite positions")
     counts = ck.launch_counts()
-    print(f"  kernel launches in phase 8: {counts} (the physics path runs "
-          f"none of the port's kernels)")
+    print(f"  kernel launches in phase 8: {counts} (the physics path's are "
+          f"the tet batches' tet_prox and tet_grad)")
+    return tet
 
 
 # ---------------------------------------------------------------------------
@@ -1776,8 +1873,8 @@ def phase_zxu(ck):
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
     counts = ck.launch_counts()
-    print(f"  kernel launches in phase 9: {counts} (the physics path runs "
-          f"none of the port's kernels)")
+    print(f"  kernel launches in phase 9: {counts} (the physics path's are "
+          f"the tet batches' tet_prox and tet_grad)")
 
 
 # ---------------------------------------------------------------------------
@@ -2423,8 +2520,8 @@ def phase_ensembles(ck):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     counts = ck.launch_counts()
-    print(f"  kernel launches in phase 12: {counts} (the physics path runs "
-          f"none of the port's kernels)")
+    print(f"  kernel launches in phase 12: {counts} (the physics path's are "
+          f"the tet batches' tet_prox and tet_grad)")
 
 
 # ---------------------------------------------------------------------------
@@ -3089,6 +3186,7 @@ def main(argv):
             variants = start_variants_build(ck)()[0]
         check_cg(ck, dev, record, n_small, variants)
         check_cg_given(ck, dev, record, variants)
+        check_tet(ck, dev, record)
         phase("3 kernels vs twins", t0)
 
     if 4 in want:
@@ -3115,7 +3213,7 @@ def main(argv):
 
     if 8 in want:
         t0 = time.perf_counter()
-        phase_physics(ck)
+        tet_counts = phase_physics(ck)
         phase("8 physics: beams (GPU vs CPU, golden, AA frames, CG size)",
               t0)
 
@@ -3205,7 +3303,8 @@ def main(argv):
     else:
         pl_at, pl_launches = f"{n_small} x 48 (phase 4)", \
             candT_counts["ericson"]
-    counts = dict(counts, ericson=pl_launches, ericson_idx=idx_launches)
+    counts = dict(counts, ericson=pl_launches, ericson_idx=idx_launches,
+                  **tet_counts)
     print(f"  B1 ericson_idx reported at its {idx_at} shape "
           f"({idx_launches} launches); ericson (planes) at {pl_at} "
           f"({pl_launches} launches)")
@@ -3225,6 +3324,9 @@ def main(argv):
                              "aa_admm_tpu/ops/pallas_kernels.py:207"),
         "cg_update2_given": ("aa_admm_tpu_torch/csrc/cg_update.cu",
                              "aa_admm_tpu/ops/pallas_kernels.py:230"),
+        # the physics local step, which the JAX package leaves to XLA
+        "tet_prox": ("aa_admm_tpu_torch/csrc/tet_prox.cu", "none (XLA)"),
+        "tet_grad": ("aa_admm_tpu_torch/csrc/tet_prox.cu", "none (XLA)"),
     }
     # the given entries' launches: both ranks of phase 13's main path
     for name in ("cg_dot", "cg_update1_given", "cg_update2_given"):

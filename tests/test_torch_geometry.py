@@ -120,7 +120,8 @@ def test_optimize_mesh_cg_group_cache_matches_jax(scene, tmp_path,
     assert ck.launch_counts() == {"ericson": 0, "ericson_idx": 0,
                                   "cg_update1": 0, "cg_update2": 0,
                                   "cg_dot": 0, "cg_update1_given": 0,
-                                  "cg_update2_given": 0}
+                                  "cg_update2_given": 0, "tet_prox": 0,
+                                  "tet_grad": 0}
     # host reads per trial: the loop test, the cache test, the AA Gram
     # matrix, and one per CG loop test
     assert st["host_reads"] >= 3 * st["trials"] + st["cg_iters"]

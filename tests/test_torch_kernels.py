@@ -434,7 +434,8 @@ def test_twins_do_not_count_launches():
     assert ck.launch_counts() == {"ericson": 0, "ericson_idx": 0,
                                   "cg_update1": 0, "cg_update2": 0,
                                   "cg_dot": 0, "cg_update1_given": 0,
-                                  "cg_update2_given": 0}
+                                  "cg_update2_given": 0, "tet_prox": 0,
+                                  "tet_grad": 0}
 
 
 @pytest.mark.cuda

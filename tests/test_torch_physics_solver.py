@@ -17,6 +17,8 @@ from aa_admm_tpu_torch.apps import windyflag as tflag
 from aa_admm_tpu_torch.core.config import AccelType, Lame, Settings
 from aa_admm_tpu_torch.core.factory import make_plane_grid, make_tet_blocks
 from aa_admm_tpu_torch.core.meshio import save_elenode, save_obj
+from aa_admm_tpu_torch.ops import cuda_kernels as ck
+from aa_admm_tpu_torch.ops.elements import TetBatch
 from aa_admm_tpu_torch.solver import physics as tphys
 
 
@@ -205,14 +207,16 @@ def test_entry_points_need_cuda(tmp_path):
 @pytest.mark.parametrize("accel", [False, True], ids=["noacc", "aa4"])
 @pytest.mark.parametrize("linear_solver", ["dense", "cg"])
 def test_cuda_graphs_match_eager_on_card(accel, linear_solver):
-    """On the card the prox, gradient and CG operator replay CUDA graphs;
-    the step, first call (capture) and second (replay), must match the
-    eager step on the CPU (the x-step's scatter sums in a varying order on
-    the card)."""
+    """On the card the tet batches' prox and gradient are one kernel launch
+    a call (ops/cuda_kernels.py tet_prox, tet_grad) and the CG operator
+    replays a CUDA graph; the step, first call (capture) and second
+    (replay), must match the eager step on the CPU (the x-step's scatter
+    sums in a varying order on the card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
     mesh = make_tet_blocks(4, 2, 2)
-    s = _settings(accel, 20)
+    iters = 20
+    s = _settings(accel, iters)
     s.linear_solver = linear_solver
     out = {}
     for dev in ("cpu", "cuda"):
@@ -224,10 +228,20 @@ def test_cuda_graphs_match_eager_on_card(accel, linear_solver):
         solver.set_pins(np.nonzero(x[:, 0] < 1e-3)[0])
         solver.initialize(s)
         args = (solver._x_dev, solver._v_dev, solver._pin_pos_dev())
+        ck.reset_launch_counts()
         for call in range(2 if dev == "cuda" else 1):
             xn, _, tr = tphys.step_xzu(solver.system, *args)
             out[dev, call] = (xn.cpu().numpy(), tr.prim.cpu().numpy())
-    assert len(solver.system.__dict__["_graphs"]) > 0
+    # no tet batch replays a graph: on the CG path the operator does
+    assert all(isinstance(b, TetBatch) for b in solver.system.batches)
+    assert set(solver.system.__dict__.get("_graphs", {})) == (
+        {"A"} if linear_solver == "cg" else set())
+    # the tet batches' launches over the two steps: each batch's prox in
+    # the set-up and in each iteration's z-update (and, accelerated, in its
+    # combined residual); its gradient in each accelerated iteration
+    per_iter = 2 if accel else 1
+    assert ck.launch_counts()["tet_prox"] == 2 * 3 * (per_iter * iters + 1)
+    assert ck.launch_counts()["tet_grad"] == (2 * 3 * iters if accel else 0)
     for key in (("cuda", 0), ("cuda", 1)):
         np.testing.assert_allclose(out[key][0], out["cpu", 0][0],
                                    rtol=1e-8, atol=1e-9)
@@ -273,6 +287,13 @@ def test_graphed_zxu_step_after_contact_refresh_on_card(monkeypatch):
         return y
 
     monkeypatch.setattr(tphys, "_graphed", checked)
+    tet_calls = {"prox": 0, "grad": 0}
+    for op in tet_calls:
+        def counted(self, x, _op=op, _fn=getattr(TetBatch, op)):
+            tet_calls[_op] += x.is_cuda and x.shape[-1] > 0
+            return _fn(self, x)
+        monkeypatch.setattr(TetBatch, op, counted)
+    ck.reset_launch_counts()
     counts = []
     for _ in range(6):
         cpu.x = gpu.x                        # the same state on both
@@ -291,4 +312,11 @@ def test_graphed_zxu_step_after_contact_refresh_on_card(monkeypatch):
     assert counts[0] == 0 and max(counts) > 0 and counts[-1] == 0, counts
     assert replays and all(ok for _, ok in replays), \
         sorted({k for k, ok in replays if not ok})
-    assert len(gpu.system.__dict__["_graphs"]) == len(gpu.system.batches)
+    # a graph for each batch but the tet batches, which launch one kernel
+    # a call on the card
+    others = [b for b in gpu.system.batches if not isinstance(b, TetBatch)]
+    assert 0 < len(others) < len(gpu.system.batches)
+    assert len(gpu.system.__dict__["_graphs"]) == len(others)
+    assert tet_calls["prox"] > 0
+    assert ck.launch_counts()["tet_prox"] == tet_calls["prox"]
+    assert ck.launch_counts()["tet_grad"] == tet_calls["grad"]

@@ -173,7 +173,8 @@ def test_optimize_mesh_matches_jax(solves):
     assert ck.launch_counts() == {"ericson": 0, "ericson_idx": 0,
                                   "cg_update1": 0, "cg_update2": 0,
                                   "cg_dot": 0, "cg_update1_given": 0,
-                                  "cg_update2_given": 0}
+                                  "cg_update2_given": 0, "tet_prox": 0,
+                                  "tet_grad": 0}
 
 
 def test_planarity_error_falls_and_matches_jax(solves, capsys):
