@@ -186,4 +186,4 @@ def alm_state_from_numpy(state: dict, device="cpu") -> dict:
         it=t(state["it"]), trial=int(state["trial"]), fv=t(state["fv"]),
         rj=t(state["rj"]), rejects=t(state["rejects"]),
         limit=int(state["limit"]), max_trials=int(state["max_trials"]),
-        cgit=int(state["cgit"]), reads=0, cp_refreshes=0)
+        cgit=int(state["cgit"]), cp_refreshes=0)

@@ -6,13 +6,16 @@ initialization milliseconds plus the per-iteration cumulative step time.
 On the card the instrumented steps synchronize the device at the end of
 each phase, so the buckets hold device time, not enqueue time. The
 program's spans (``span``, ``recording``) time the fused path itself, on
-the host's clock, for the benchmark's traced runs."""
+the host's clock, for the benchmark's traced runs. ``host_read`` is the
+one way the program waits for the device to decide something: each read
+is a ``sync`` span and one more in ``host_reads()``."""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
+import threading
 import time
 from typing import List
 
@@ -59,8 +62,8 @@ class RuntimeData:
 #
 # A span names one stretch of the host's time inside the program: a solve or
 # a step (a root, one per request), its phases, each host read that waits
-# for the device (``sync``, one per read the solvers' ``stats["host_reads"]``
-# count), the set-up's builds and the CUDA graphs' capture. Spans are kept
+# for the device (``sync``, opened by ``host_read`` alone), the set-up's
+# builds and the CUDA graphs' capture. Spans are kept
 # only while a ``recording()`` is open; otherwise ``span`` hands back one
 # shared do-nothing context, which reads no clock and keeps nothing. Spans
 # go around the calls into a CUDA graph's capture, never inside the captured
@@ -168,3 +171,21 @@ def recording():
         yield rec
     finally:
         _active = None
+
+
+# ---- host reads ----
+
+_reads = threading.local()
+
+
+def host_read(t):
+    """t's host copy, the program's one wait for the device to decide
+    something: a ``sync`` span, and one more in this thread's host_reads()."""
+    with span("sync"):
+        _reads.n = host_reads() + 1
+        return t.cpu()
+
+
+def host_reads() -> int:
+    """The host reads this thread has made (count work by a difference)."""
+    return getattr(_reads, "n", 0)

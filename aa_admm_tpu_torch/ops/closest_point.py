@@ -11,12 +11,12 @@ candidates from the triangle table itself, or, for the candT cache, the
 kernel runs, on CPU tensors its plain twin.
 
 Host reads: each cached query decides on the host whether the cache is still
-valid (one read of ``need``) and returns that decision, so the caller can
-count it. A query set split over ranks passes ``reduce`` (a sum over the
-ranks): the test is then taken over every rank's queries, so all ranks
-refresh together, on the trials where the whole set would. Top-k selections whose order feeds cache contents use a stable
-ascending sort, which puts the lower index first on ties, as
-``jax.lax.top_k`` does.
+valid (one ``host_read`` of ``need``) and returns whether it refreshed. A
+query set split over ranks passes ``reduce`` (a sum over the ranks): the
+test is then taken over every rank's queries, so all ranks refresh
+together, on the trials where the whole set would. Top-k selections
+whose order feeds cache contents use a stable ascending sort, which puts
+the lower index first on ties, as ``jax.lax.top_k`` does.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.timers import span
+from ..core.timers import host_read
 from . import cuda_kernels as ck
 
 
@@ -346,14 +346,13 @@ def _cp_refresh_group(p, tri_blk, cent_blk, rad_blk, gcenter, gradius,
 
 
 def _needs_refresh(p, cache, reduce=None) -> bool:
-    """The cache-validity test, read on the host (one device sync); with
+    """The cache-validity test, read on the host (one host_read); with
     reduce, "any" over every rank's queries (the ranks' counts summed)."""
     moved = torch.sqrt(((p - cache.p0) ** 2).sum(-1))
     need = (2.0 * moved >= cache.slack).any()
     if reduce is not None:
         need = reduce(need.to(p.dtype).reshape(1))[0] > 0
-    with span("sync"):
-        return bool(need)
+    return bool(host_read(need))
 
 
 def closest_point_cached_group(p, tri_blk, cent_blk, rad_blk, gcenter,

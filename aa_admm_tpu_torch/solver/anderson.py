@@ -8,8 +8,8 @@ masked m x m normal equations; ring-buffer columns; ``replace``/``reset``.
 
 The ring-buffer column and the first-step choice stay on the device (one-hot
 masks and ``torch.where``, both branches computed), so ``compute`` never
-reads the iteration counters back. Its one host read is the m x m Gram
-matrix, moved to the CPU for the eigendecomposition.
+reads the iteration counters back. Its one host read (``host_read``) is
+the m x m Gram matrix, moved to the CPU for the eigendecomposition.
 
 A state may carry a leading scene axis S (``init`` of an (S, d) iterate):
 S independent windows, each with its own column, counters and Gram
@@ -31,7 +31,7 @@ import dataclasses
 
 import torch
 
-from ..core.timers import span
+from ..core.timers import host_read
 
 _EPS = 1e-14
 
@@ -125,8 +125,7 @@ def _solve_theta(M, rhs, valid, batched):
     Mm = torch.where(vmask, M, eye)
     rhs_m = torch.where(valid, rhs, torch.zeros_like(rhs))
     systems = torch.cat([Mm, rhs_m[..., None, :]], dim=-2)
-    with span("sync"):
-        host = systems.cpu()
+    host = host_read(systems)
     w, Q = torch.linalg.eigh(host[..., :m, :])
     cutoff = (torch.clamp_min(w.abs().amax(-1, keepdim=True), _EPS)
               * (m * torch.finfo(M.dtype).eps * 10))

@@ -16,9 +16,9 @@ ported: on an H100 its CG is slower than the ELL one (PERF.md;
 
 The loop counts accepted iterations. The accept/reject choice stays on the
 device (``torch.where`` over the state); the host reads the accept count once
-per trial to decide whether to go on. Host reads per trial: that loop test,
-one per cached closest-point projection, the CG loop tests, and the AA Gram
-matrix. The state's ``reads`` counter adds them up.
+per trial to decide whether to go on. Host reads (``host_read``) per trial:
+that loop test, one per cached closest-point projection, the CG loop tests,
+and the AA Gram matrix.
 
 Sharded over ranks (``ALMGeometrySolver.shard``, ``parallel/geometry.py``)
 the system holds this rank's contiguous range of vertex rows (ELL rows,
@@ -45,7 +45,7 @@ import torch
 
 from .. import resolve_device
 from ..core.meshio import save_residual_file
-from ..core.timers import MicroTimer, span, spanned
+from ..core.timers import MicroTimer, host_read, host_reads, span, spanned
 from ..ops._batchutil import GatherAdjoint
 from ..ops.constraints import (AngleBatch, ClosenessBatch, EdgeLengthBatch,
                                PlaneBatch, RefSurfaceBatch,
@@ -231,7 +231,7 @@ def _w2(b, t):
 def _solve_x(system: GeometrySystem, z_hard, u, z_soft, x_warm=None):
     """x-update (ALMGeometrySolver::ADMM_x_update, :442-450) in delta form:
     A delta = rhs_fixed + rho D_h^T (z_h - u) + D_s^T W_s z_s - A x0.
-    Returns (x, cg_iterations, host_reads); x (and x_warm) are this rank's
+    Returns (x, cg_iterations); x (and x_warm) are this rank's
     rows of a sharded system: its elements scatter into a full-length
     partial, the partials (with each rank's rows of the fixed terms) are
     summed, and the rank keeps its rows."""
@@ -247,7 +247,7 @@ def _solve_x(system: GeometrySystem, z_hard, u, z_soft, x_warm=None):
         rhs = rhs + b.scatter(_w2(b, zs) * zs, system.n_verts)
     rhs = _reduce(system, rhs)
     if system.solver is not None:
-        return _own(system, system.solver.solve(rhs)), 0, 0
+        return _own(system, system.solver.solve(rhs)), 0
     rhs = _own(system, rhs)
 
     if system.ell is not None:
@@ -321,14 +321,14 @@ def _alm_init_state(system: GeometrySystem, init_x):
                 rj=torch.zeros((system.max_iter,), dtype=torch.int64, **kw),
                 rejects=torch.zeros((), dtype=torch.int64, **kw),
                 limit=system.max_iter, max_trials=2 * system.max_iter + 4,
-                cgit=0, reads=0, cp_refreshes=0)
+                cgit=0, cp_refreshes=0)
 
 
 def _alm_trial(system: GeometrySystem, st, it_h: int):
     """One accept/reject trial (the body of the JAX while_loop); `it_h` is
     the accepted count at its start, as read by the loop test."""
     cx, cu = st["x"], st["u"]
-    reads, refreshes = 0, 0
+    refreshes = 0
     cx_full = _full(system, cx)
     dx_h = system.dx_hard(cx_full)         # D_h (x0 + delta)
     dx_s = system.dx_soft(cx_full)
@@ -347,16 +347,13 @@ def _alm_trial(system: GeometrySystem, st, it_h: int):
                 cps.append(None)
             else:
                 z, c2, refreshed = b.project_cached(d, c, _reducer(system))
-                reads += 1
                 refreshes += int(refreshed)
                 z_s.append(z)
                 cps.append(c2)
 
     # The global step: the x-update's solve.
     with span("global"):
-        new_x, n_cg, cg_reads = _solve_x(system, z_h, cu, tuple(z_s),
-                                         x_warm=cx)
-    reads += cg_reads
+        new_x, n_cg = _solve_x(system, z_h, cu, tuple(z_s), x_warm=cx)
     dx_h2 = system.dx_hard(_full(system, new_x))
     new_u = tuple(ui + d - zh for ui, d, zh in zip(cu, dx_h2, z_h))
     res = _reduce(system, _sqnorm_all(
@@ -368,7 +365,6 @@ def _alm_trial(system: GeometrySystem, st, it_h: int):
         aa_acc, mixed = anderson.compute(
             st["aa"], torch.cat([_flatten(new_u), new_x.reshape(-1)]),
             _reducer(system))
-        reads += 1
         usize = sum(t.numel() for t in new_u)
         nu = _unflatten(mixed[:usize], new_u)
         nx = mixed[usize:].reshape(new_x.shape)
@@ -397,7 +393,7 @@ def _alm_trial(system: GeometrySystem, st, it_h: int):
                 rejects=torch.where(accept, torch.zeros_like(st["rejects"]),
                                     st["rejects"] + 1),
                 limit=st["limit"], max_trials=st["max_trials"],
-                cgit=st["cgit"] + n_cg, reads=st["reads"] + reads,
+                cgit=st["cgit"] + n_cg,
                 cp_refreshes=st["cp_refreshes"] + refreshes)
 
 
@@ -408,9 +404,7 @@ def solve_alm_chunk(system: GeometrySystem, state):
     loop test reads ``it`` on the host once per evaluation."""
     st = dict(state)
     while st["trial"] < st["max_trials"]:
-        st["reads"] += 1
-        with span("sync"):
-            it_h = int(st["it"])
+        it_h = int(host_read(st["it"]))
         if it_h >= st["limit"]:
             break
         st = _alm_trial(system, st, it_h)
@@ -435,20 +429,19 @@ def soft_energy_delta(system: GeometrySystem, delta, caches):
     state's ``cp``) projects through it, as the loop does: exact, refreshed
     where its movement test asks (one host read, taken over every rank's
     queries); a batch whose entry is None projects uncached. Returns
-    (energy, caches, host reads, refreshes)."""
+    (energy, caches, refreshes)."""
     total = torch.zeros((), dtype=delta.dtype, device=delta.device)
-    out, reads, refreshes = [], 0, 0
+    out, refreshes = [], 0
     for b, d, c in zip(system.soft, system.dx_soft(_full(system, delta)),
                        caches):
         if c is None:
             p = b.project(d)
         else:
             p, c, refreshed = b.project_cached(d, c, _reducer(system))
-            reads += 1
             refreshes += int(refreshed)
         out.append(c)
         total = total + 0.5 * (_w2(b, d) * (d - p) ** 2).sum()
-    return _reduce(system, total), tuple(out), reads, refreshes
+    return _reduce(system, total), tuple(out), refreshes
 
 
 def soft_energy(system: GeometrySystem, x):
@@ -637,8 +630,8 @@ class ALMGeometrySolver:
         budget of 2*iters+4 over the whole solve). The initial and final
         soft energies project through the loop's closest-point caches:
         ``stats["energy_refreshes"]`` counts the energies' cache refreshes,
-        ``cp_refreshes`` the loop's, and ``host_reads`` the reads of both
-        (the energies' cache tests included). On a sharded solver the
+        ``cp_refreshes`` the loop's, and ``host_reads`` the host reads of
+        the loop and of both energies. On a sharded solver the
         per-solve anchors are made for this rank's rows and elements (the
         JAX package shards them again), and ``stats`` gains the collectives of
         the solve's trials and of the solution's gather (``collectives``),
@@ -683,8 +676,9 @@ class ALMGeometrySolver:
         # The initial energy projects the first trial's points (delta 0)
         # through the loop's fresh caches; the loop starts from the caches
         # it leaves, built at those points.
+        reads0 = host_reads()
         with span("solve.energy"):
-            e0, state["cp"], e_reads, e_refreshes = soft_energy_delta(
+            e0, state["cp"], e_refreshes = soft_energy_delta(
                 self.system, state["x"], state["cp"])
             e0 = float(e0)
         print(f"Init energy = {e0}")
@@ -732,17 +726,16 @@ class ALMGeometrySolver:
             t_prev = t_end
         self.anderson_reset = [int(r) for r in np.concatenate(rjs)]
         self.stats = dict(trials=state["trial"], cg_iters=state["cgit"],
-                          host_reads=state["reads"],
                           cp_refreshes=state["cp_refreshes"], solve_s=total)
         if comm is not None:
             self.stats.update(collectives=comm.count - c0[0],
                               comm_bytes=comm.nbytes - c0[1],
                               comm_s=comm.seconds - c0[2])
         with span("solve.energy"):
-            ef, _, reads, refreshes = soft_energy_delta(self.system, delta,
-                                                        state["cp"])
+            ef, _, refreshes = soft_energy_delta(self.system, delta,
+                                                 state["cp"])
             ef = float(ef)
-        self.stats["host_reads"] += e_reads + reads
+        self.stats["host_reads"] = host_reads() - reads0
         self.stats["energy_refreshes"] = e_refreshes + refreshes
         print(f"final energy = {ef}")
         print(f"solve time = {total:.3f}s for {len(fv)} accepted iterations")

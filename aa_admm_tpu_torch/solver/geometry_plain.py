@@ -16,10 +16,10 @@ Differences from the ALM solver (solver/geometry.py):
     exactly max_iter iterations.
 
 Where the JAX package picks the reset branch with ``lax.cond``, the port
-reads the test on the host (one read per accelerated iteration, counted in
-``GeometrySolver.stats["host_reads"]`` with the AA Gram matrix's): the reset
-branch recomputes a whole z-update, closest-point sweep included, which
-computing both branches would pay in every iteration. The soft
+reads the test on the host (one ``host_read`` per accelerated iteration,
+beside the AA Gram matrix's): the reset branch recomputes a whole
+z-update, closest-point sweep included, which computing both branches
+would pay in every iteration. The soft
 ``RefSurfaceBatch.project`` runs kernel B1 on CUDA tensors and its twin on
 CPU tensors.
 """
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.timers import MicroTimer
+from ..core.timers import MicroTimer, host_read, host_reads
 from ..ops.constraints import (assemble_geometry_node_matrix, cast_floats,
                                torch_dtype)
 from . import anderson
@@ -58,7 +58,6 @@ class PlainTrace(NamedTuple):
     x: torch.Tensor
     function_values: torch.Tensor   # (max_iter,)
     resets: int
-    host_reads: int
 
 
 def _transform_all(system, x):
@@ -104,7 +103,6 @@ def solve_plain(system: PlainGeometrySystem, init_x) -> PlainTrace:
         return torch.cat([_flatten(u_h + u_s), x.reshape(-1)])
 
     usize = sum(t.numel() for t in u_h0 + u_s0)
-    reads = 0
 
     # ADMM_init_variables (GeometrySolver.h:404-430): one full sweep.
     dx_h, dx_s = _transform_all(system, x0)
@@ -123,8 +121,7 @@ def solve_plain(system: PlainGeometrySystem, init_x) -> PlainTrace:
         z_h, z_s = _z_update(system, st["txh"], st["txs"], st["uh"], st["us"])
         res = _residual(st["txh"] + st["txs"], z_h + z_s)
         if system.accel:
-            reads += 1
-            if bool(res > st["prev"]):
+            if bool(host_read(res > st["prev"])):
                 # swap current <-> default; replace the AA iterate; recompute
                 cx2, cuh2, cus2 = st["dx"], st["duh"], st["dus"]
                 aa = anderson.replace(aa, flat_ux(cuh2, cus2, cx2))
@@ -142,7 +139,6 @@ def solve_plain(system: PlainGeometrySystem, init_x) -> PlainTrace:
         dus = tuple(u + d - z for u, d, z in zip(st["us"], ts, z_s))
         if system.accel:
             aa, mixed = anderson.compute(aa, flat_ux(duh, dus, dx_new))
-            reads += 1
             u_all = _unflatten(mixed[:usize], duh + dus)
             cuh, cus = u_all[:len(duh)], u_all[len(duh):]
             cx = mixed[usize:].reshape(dx_new.shape)
@@ -154,8 +150,7 @@ def solve_plain(system: PlainGeometrySystem, init_x) -> PlainTrace:
         residuals.append(res)
     fv = (torch.stack(residuals) if residuals
           else torch.zeros((0,), **kw))
-    return PlainTrace(x=st["x"], function_values=fv, resets=resets,
-                      host_reads=reads)
+    return PlainTrace(x=st["x"], function_values=fv, resets=resets)
 
 
 class GeometrySolver:
@@ -206,6 +201,7 @@ class GeometrySolver:
             accel=anderson_m > 0)
         t = MicroTimer()
         x0 = torch.from_numpy(np.asarray(init_x, self.dtype)).to(self.device)
+        reads0 = host_reads()
         trace = solve_plain(self.system, x0)
         self._solution = trace.x.cpu().numpy()
         fv = trace.function_values.cpu().numpy()
@@ -214,7 +210,7 @@ class GeometrySolver:
         n = len(fv)
         self.elapsed_time = [total * (i + 1) / max(n, 1) for i in range(n)]
         self.stats = dict(iters=n, resets=trace.resets,
-                          host_reads=trace.host_reads, solve_s=total)
+                          host_reads=host_reads() - reads0, solve_s=total)
         return trace
 
     def get_solution(self):

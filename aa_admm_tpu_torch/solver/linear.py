@@ -12,8 +12,9 @@
   counterpart of ``pcg_banded`` without the TPU band layout: vectors stay
   (n, c), x/r/p are updated in place.
 
-The loop condition is read on the host once per iteration; both CG
-functions return ``(x, iterations, host_reads)``.
+Each CG loop reads its convergence test on the host (``host_read``)
+before every iteration, and once more where it stops converged; both CG
+functions return ``(x, iterations)``, as the JAX ``pcg`` does.
 
 Row-sharded CG (the counterpart of ``row_sharding``): ``pcg_fused`` with
 ``reduce`` (a function that sums a tensor over the ranks) takes the
@@ -34,7 +35,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core.timers import span
+from ..core.timers import host_read
 from ..ops import cuda_kernels as ck
 from ..ops._batchutil import hostarr
 
@@ -122,8 +123,8 @@ def pcg(operator: Callable, rhs, diag, tol: float = 1e-12,
     """Preconditioned CG on (n, ncoord) blocks (plain torch).
 
     operator: v (n, c) -> A v (n, c). diag: (n,) Jacobi diagonal, used when
-    precond (an SPD M^-1 r callable) is None. Returns (x, n_iters,
-    host_reads). Per-column alpha/beta; converged columns freeze."""
+    precond (an SPD M^-1 r callable) is None. Returns (x, n_iters).
+    Per-column alpha/beta; converged columns freeze."""
     if precond is None:
         precond = _jacobi(diag)
     x = torch.zeros_like(rhs) if x0 is None else x0
@@ -133,12 +134,9 @@ def pcg(operator: Callable, rhs, diag, tol: float = 1e-12,
     rz, rr = (r * z).sum(0), (r * r).sum(0)
     rhs_norm2 = torch.clamp_min((rhs * rhs).sum(0), 1e-300)
     tol2 = tol * tol
-    it = reads = 0
+    it = 0
     while it < max_iters:
-        reads += 1
-        with span("sync"):
-            converged = not bool((rr / rhs_norm2 > tol2).any())
-        if converged:
+        if not bool(host_read((rr / rhs_norm2 > tol2).any())):
             break
         Ap = operator(p)
         pAp = (p * Ap).sum(0)
@@ -156,7 +154,7 @@ def pcg(operator: Callable, rhs, diag, tol: float = 1e-12,
         p = z + beta[None, :] * p
         rz = rz_new
         it += 1
-    return x, it, reads
+    return x, it
 
 
 def pcg_fused(operator: Callable, rhs, diag, tol: float = 1e-12,
@@ -166,7 +164,7 @@ def pcg_fused(operator: Callable, rhs, diag, tol: float = 1e-12,
     """pcg with the vector half of each iteration in kernels B2
     ({pAp, alpha, x +=, r -=, rr}) and B3 ({rz, beta, p =}). Same semantics
     as pcg; the column dots are summed in another order. x0 is not
-    modified. Returns (x, n_iters, host_reads). With reduce (a row-sharded
+    modified. Returns (x, n_iters). With reduce (a row-sharded
     solve) B2 and B3 run through their given entries, fed the all-rank
     pAp and {rz, rr}."""
     if precond is None:
@@ -179,12 +177,9 @@ def pcg_fused(operator: Callable, rhs, diag, tol: float = 1e-12,
                           reduce)
     rz, rr = (r * p).sum(0), (r * r).sum(0)
     thresh = torch.clamp_min((rhs * rhs).sum(0), 1e-300) * (tol * tol)
-    it = reads = 0
+    it = 0
     while it < max_iters:
-        reads += 1
-        with span("sync"):
-            converged = not bool((rr > thresh).any())
-        if converged:
+        if not bool(host_read((rr > thresh).any())):
             break
         Ap = operator(p)
         rr_new = ck.cg_update1(rz, p, Ap, x, r, rr, thresh)
@@ -192,7 +187,7 @@ def pcg_fused(operator: Callable, rhs, diag, tol: float = 1e-12,
         rz = ck.cg_update2(rz, r, z, p, rr, thresh)
         rr = rr_new
         it += 1
-    return x, it, reads
+    return x, it
 
 
 def _pcg_given(operator, rhs, tol, max_iters, x, r, p, precond, reduce):
@@ -205,12 +200,9 @@ def _pcg_given(operator, rhs, tol, max_iters, x, r, p, precond, reduce):
                                        (rhs * rhs).sum(0)))).unbind(0)
     thresh = torch.clamp_min(rhs2, 1e-300) * (tol * tol)
     sums = torch.empty((2, 2, x.shape[1]), dtype=x.dtype, device=x.device)
-    it = reads = 0
+    it = 0
     while it < max_iters:
-        reads += 1
-        with span("sync"):
-            converged = not bool((rr > thresh).any())
-        if converged:
+        if not bool(host_read((rr > thresh).any())):
             break
         Ap = operator(p)
         pAp = reduce(ck.cg_dot(p, Ap))
@@ -222,4 +214,4 @@ def _pcg_given(operator, rhs, tol, max_iters, x, r, p, precond, reduce):
         ck.cg_update2_given(rz_new, rz, z, p, rr, thresh)
         rz, rr = rz_new, rr_new
         it += 1
-    return x, it, reads
+    return x, it

@@ -30,11 +30,12 @@ state:
     recomputes a whole z-update (every prox), which computing both branches
     would pay in every accelerated iteration; the read costs one sync, and
     the AA Gram matrix already costs one per iteration.
-Host reads per iteration: one for the AA Gram matrix (``anderson.compute``
-solves it on the CPU), the CG loop tests, the reject test where it is read,
-and one per self-contact detection (its overflow flag); the instrumented
-steps read each residual as well, and a chunked step synchronizes once per
-chunk. ``PhysicsSolver.stats["host_reads"]`` counts the reads.
+Host reads (``host_read``) per iteration: one for the AA Gram matrix
+(``anderson.compute`` solves it on the CPU), the CG loop tests and the
+reject test where it is read; one per self-contact detection (its
+overflow flag); the instrumented steps read each residual and a
+``SolverLog``'s positions as well. A chunked step also synchronizes once
+per chunk, which reads nothing.
 
 Where XLA fuses the local step into a few kernels, eager PyTorch would
 launch each elementwise op of the batched SVD and Newton: about 15,000
@@ -79,6 +80,7 @@ system:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import os
@@ -92,7 +94,8 @@ from ..core.checkpoint import load_admm_state_text, save_admm_state_text
 from ..core.config import Lame, Settings
 from ..core.factory import TetMeshData
 from ..core.meshio import save_residual_file
-from ..core.timers import MicroTimer, RuntimeData, span, spanned
+from ..core.timers import (MicroTimer, RuntimeData, host_read, host_reads,
+                           span, spanned)
 from ..ops._batchutil import GatherAdjoint, cast_floats, torch_dtype
 from ..ops.collider import (DynamicTetCollider, HashGridTetCollider,
                             TetMeshSdf)
@@ -216,6 +219,15 @@ class PhysicsSystem:
 def _counts():
     """Host-read and CG-iteration counters of one or more steps."""
     return dict(host_reads=0, cg_iters=0)
+
+
+@contextlib.contextmanager
+def _reads_into(counts):
+    """Adds the block's host reads to counts["host_reads"] (if counts)."""
+    reads0 = host_reads()
+    yield
+    if counts is not None:
+        counts["host_reads"] += host_reads() - reads0
 
 
 def _wx(b, a, power=1):
@@ -513,7 +525,7 @@ def _solve_x(system: PhysicsSystem, M_xbar_free, z, u, c_blocks, base_full,
     """Global step: x = A^-1 (M xbar + dt2p * D^T W (W z + C - u))
     (Solver.cpp:148-149). c_blocks = F_b(pin embedding), constant per step.
     x_warm (full positions) warm-starts the CG path; the dense path is one
-    matmul. CG iterations and host reads go into `counts`. A tiled system's
+    matmul. CG iterations go into `counts`. A tiled system's
     S scenes are solved as the 3S columns of one (nf, 3S) block."""
     t = _tmap(lambda b, zb, ub, cb: _wx(b, zb - cb, 2) - _wx(b, ub),
               system.batches, z, u, c_blocks)
@@ -536,13 +548,12 @@ def _solve_x(system: PhysicsSystem, M_xbar_free, z, u, c_blocks, base_full,
             return cols(_graphed(system, "A", lambda v: _apply_A(system, v),
                                  rows(vc)))
         x0 = None if x_warm is None else cols(x_warm[fi])
-        xf, n_it, reads = pcg(operator, cols(rhs), system.precond_diag,
-                              tol=system.cg_tol,
-                              max_iters=system.cg_max_iters, x0=x0)
+        xf, n_it = pcg(operator, cols(rhs), system.precond_diag,
+                       tol=system.cg_tol, max_iters=system.cg_max_iters,
+                       x0=x0)
         xf = rows(xf)
         if counts is not None:
             counts["cg_iters"] += n_it
-            counts["host_reads"] += reads
     return base_full.index_copy(0, fi, xf)
 
 
@@ -609,7 +620,6 @@ def _xzu_body(system: PhysicsSystem, consts, counts=None):
     carried state: returns (carry, (prim, comb, reject))."""
     M_xbar_free, c_blocks, base_full = consts["M"], consts["c"], consts["base"]
     accel = system.accel
-    counts = _counts() if counts is None else counts
 
     def solve(z, u, x_warm=None):
         return _solve_x(system, M_xbar_free, z, u, c_blocks, base_full,
@@ -648,17 +658,12 @@ def _xzu_body(system: PhysicsSystem, consts, counts=None):
                     return dict(x=cx2, z=dz_, u=cu2, aa=aa2, prim=prim2)
 
                 kept = dict(x=cx, z=cz, u=cu, aa=aa, prim=prim)
-                if system.solver is not None:
-                    # dense: both branches, chosen on the device
+                # dense: both branches, chosen on the device; CG: the
+                # reject branch only when the host read finds a reject
+                if (system.solver is not None
+                        or bool(host_read(rejected.any()))):
                     cx, cz, cu, aa, prim = _select(
                         rejected, do_reject(), kept).values()
-                else:
-                    counts["host_reads"] += 1
-                    with span("sync"):
-                        any_rejected = bool(rejected.any())
-                    if any_rejected:
-                        cx, cz, cu, aa, prim = _select(
-                            rejected, do_reject(), kept).values()
             else:
                 rejected = torch.zeros_like(prim, dtype=torch.bool)
 
@@ -669,7 +674,6 @@ def _xzu_body(system: PhysicsSystem, consts, counts=None):
                 ndz = _update_z(system, cx, cu)
             aa, zflat = anderson.compute(aa, _aa_flat(system, ndz),
                                          _aa_reduce(system))
-            counts["host_reads"] += 1
             cz = _aa_unflat(system, zflat, ndz)
         else:
             last_z = cz
@@ -715,21 +719,25 @@ def _commit_x(system: PhysicsSystem, carry):
 
 
 def _step_setup(system: PhysicsSystem, x, v, pin_pos, counts=None):
-    """The system's order's prediction and init sweep: (carry, consts)."""
+    """The system's order's prediction and init sweep: (carry, consts).
+    Its host reads and CG iterations go into `counts`."""
     setup = _xzu_setup if system.order == "xzu" else _zxu_setup
-    return setup(system, x, v, pin_pos, counts)
+    with _reads_into(counts):
+        return setup(system, x, v, pin_pos, counts)
 
 
 def _step_scan_chunk(system: PhysicsSystem, carry, consts, length: int,
                      counts=None):
     """`length` (>= 1) ADMM iterations from `carry`: (carry, (prims, combs,
-    rejects)), each (length,)."""
+    rejects)), each (length,). Their host reads and CG iterations go into
+    `counts`."""
     factory = _xzu_body if system.order == "xzu" else _zxu_body
     body = factory(system, consts, counts)
     recs = []
-    for _ in range(length):
-        carry, rec = body(carry)
-        recs.append(rec)
+    with _reads_into(counts):
+        for _ in range(length):
+            carry, rec = body(carry)
+            recs.append(rec)
     return carry, tuple(torch.stack([r[i] for r in recs]) for i in range(3))
 
 
@@ -764,7 +772,7 @@ def step_xzu(system: PhysicsSystem, x, v, pin_pos, counts=None):
 
 def _phase_tools(system, x, v, pin_pos, counts):
     """What both instrumented steps share: the prediction's constants, the
-    x-solve and a counted host read."""
+    x-solve and the host read of a residual."""
     v, xbar_full, base_full = _predict(system, x, v, pin_pos)
     fi = system.free_idx
     M_xbar_free = system.masses[fi, None] * xbar_full[fi]
@@ -775,8 +783,7 @@ def _phase_tools(system, x, v, pin_pos, counts):
                         x_warm=x_warm, counts=counts)
 
     def read(s):
-        counts["host_reads"] += 1
-        return float(s)
+        return float(host_read(s))
     return xbar_full, base_full, solve, read
 
 
@@ -787,14 +794,13 @@ def step_xzu_instrumented(system: PhysicsSystem, x, v, pin_pos,
     reference's RuntimeData buckets (global, local, acceleration,
     initialization ms, Solver.cpp:102-244) and appends one cumulative time
     per recorded iteration to ``runtime.step_time``. Each phase ends in a
-    device synchronization; each residual is read on the host (counted in
-    `counts`). On the card the prox, gradient and CG operator replay the
-    fused step's CUDA graphs.
+    device synchronization; each residual is read on the host. CG
+    iterations go into `counts`. On the card the prox, gradient and CG
+    operator replay the fused step's CUDA graphs.
 
     log: optional core.solverlog.SolverLog, fed the positions after each
     global solve (SolverLog.hpp:44-60). Returns (x_new, v_new, prims,
     combs, resets) with numpy residuals."""
-    counts = _counts() if counts is None else counts
     t = MicroTimer()
     xbar_full, base_full, solve, read = _phase_tools(system, x, v, pin_pos,
                                                      counts)
@@ -842,7 +848,6 @@ def step_xzu_instrumented(system: PhysicsSystem, x, v, pin_pos,
             dx_, du_ = cx, cu
             dz_ = _update_z(system, cx, cu)
             aa, zflat = anderson.compute(aa, _flatten(dz_))
-            counts["host_reads"] += 1
             cz = _unflatten(zflat, dz_)
         else:
             last_z = cz
@@ -863,8 +868,7 @@ def step_xzu_instrumented(system: PhysicsSystem, x, v, pin_pos,
         prims.append(prim)
         combs.append(comb)
         if log is not None:
-            counts["host_reads"] += 1
-            log.add(cx.cpu().numpy().ravel())
+            log.add(host_read(cx).numpy().ravel())
         runtime.step_time.append(runtime.local_ms + runtime.global_ms
                                  + runtime.acceleration_ms)
         if comb < _EPS_BREAK:
@@ -918,7 +922,6 @@ def _zxu_body(system: PhysicsSystem, consts, counts=None):
     M_xbar_free, c_blocks, base_full = consts["M"], consts["c"], consts["base"]
     accel = system.accel
     fi = system.free_idx
-    counts = _counts() if counts is None else counts
 
     def body(carry):
         cx, cu, aa = carry["x"], carry["u"], carry["aa"]
@@ -928,12 +931,9 @@ def _zxu_body(system: PhysicsSystem, consts, counts=None):
         prim = _j_prim_norm(system, cx, cz)
         if accel:
             rejected = carry["prev"] < prim
-            counts["host_reads"] += 1
             # Frozen iterations (done) discard their result: no reject run.
             redo = rejected & ~done
-            with span("sync"):
-                any_redo = bool(redo.any())
-            if any_redo:
+            if bool(host_read(redo.any())):
                 ru, rx = carry["du"], carry["dx"]
                 rz = _update_z(system, rx, ru)
                 cu, cx, aa, cz, prim = _select(redo, dict(
@@ -963,7 +963,6 @@ def _zxu_body(system: PhysicsSystem, consts, counts=None):
         if accel:
             aa3, mixed = anderson.compute(aa, _flat_ux(system, ndu, cx[fi]),
                                           _aa_reduce(system))
-            counts["host_reads"] += 1
             zu = _u_size(system, ndu)
             cu3 = _aa_unflat(system, mixed[..., :zu], ndu)
             cx3 = base_full.index_copy(0, fi, mixed[..., zu:].reshape(-1, 3))
@@ -1001,7 +1000,6 @@ def step_zxu_instrumented(system: PhysicsSystem, x, v, pin_pos,
     before the u-update and is not recorded (Solver.cpp:188-212); an
     accelerated step commits default_x. Returns (x_new, v_new, prims,
     combs, rejects, resets)."""
-    counts = _counts() if counts is None else counts
     t = MicroTimer()
     xbar_full, base_full, solve, read = _phase_tools(system, x, v, pin_pos,
                                                      counts)
@@ -1058,7 +1056,6 @@ def step_zxu_instrumented(system: PhysicsSystem, x, v, pin_pos,
         du_, dx_ = cu, cx
         if accel:
             aa, mixed = anderson.compute(aa, _flat_ux(system, cu, cx[fi]))
-            counts["host_reads"] += 1
             cu = _unflatten(mixed[:zu_size], cu)
             cx = base_full.index_copy(0, fi, mixed[zu_size:].reshape(-1, 3))
         _sync_dev(cx)
@@ -1522,18 +1519,16 @@ class PhysicsSolver:
         rebuild + detect (DynamicObject.hpp:65-68, Collider.hpp:152-212).
         One host read per detection (the overflow flag)."""
         b = self.system.batches[self._selfcol_index]
-        while True:
-            active, target, normal, overflow = _detect_self_contacts(
-                tuple(self.dynamic_colliders), self._x_dev, b.idx)
-            self.stats["host_reads"] += 1
-            with span("sync"):
-                clear = not bool(overflow)
-            if clear:
-                break
-            # A spatial-hash bucket exceeded its candidate cap, so contacts
-            # may have been dropped. Escalate and detect again (the
-            # exactness of the reference BVH, DynamicObject.hpp:65-118).
-            self._escalate_colliders()
+        with _reads_into(self.stats):
+            while True:
+                active, target, normal, overflow = _detect_self_contacts(
+                    tuple(self.dynamic_colliders), self._x_dev, b.idx)
+                if not bool(host_read(overflow)):
+                    break
+                # A spatial-hash bucket exceeded its candidate cap, so contacts
+                # may have been dropped. Escalate and detect again (the
+                # exactness of the reference BVH, DynamicObject.hpp:65-118).
+                self._escalate_colliders()
         b.active.copy_(active)
         b.target.copy_(target)
         b.normal.copy_(normal)
@@ -1643,13 +1638,14 @@ class PhysicsSolver:
         c0 = rt.local_ms + rt.global_ms + rt.acceleration_ms
         args = (self.system, self._x_dev, self._v_dev, self._pin_pos_dev(),
                 rt)
-        if self.order == UpdateOrder.XZU:
-            x_new, v_new, prims, combs, resets = step_xzu_instrumented(
-                *args, log=log, counts=self.stats)
-            rejects = np.zeros(len(prims), np.int64)
-        else:
-            x_new, v_new, prims, combs, rejects, resets = \
-                step_zxu_instrumented(*args, counts=self.stats)
+        with _reads_into(self.stats):
+            if self.order == UpdateOrder.XZU:
+                x_new, v_new, prims, combs, resets = step_xzu_instrumented(
+                    *args, log=log, counts=self.stats)
+                rejects = np.zeros(len(prims), np.int64)
+            else:
+                x_new, v_new, prims, combs, rejects, resets = \
+                    step_zxu_instrumented(*args, counts=self.stats)
         self._x_dev, self._v_dev = x_new, v_new
         self._x_host = self._v_host = None
         t0 = self.step_times[-1] if self.step_times else 0.0

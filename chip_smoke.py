@@ -1206,6 +1206,7 @@ def profile_trials(solver, init_x, n_iter=5, out="result/profile_full.txt"):
     device's busy share of the wall time, host reads per trial."""
     import os
     from torch.profiler import ProfilerActivity, profile
+    from aa_admm_tpu_torch.core.timers import host_reads
     from aa_admm_tpu_torch.solver import geometry as g
     x0 = torch.as_tensor(np.asarray(init_x, np.float32), device=solver.device)
     state = g._alm_init_state(solver.system, x0)
@@ -1213,10 +1214,11 @@ def profile_trials(solver, init_x, n_iter=5, out="result/profile_full.txt"):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0, reads0 = time.perf_counter(), host_reads()
         state = g.solve_alm_chunk(solver.system, state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        reads = host_reads() - reads0
     ka = prof.key_averages()
 
     def dev_us(e):
@@ -1236,7 +1238,7 @@ def profile_trials(solver, init_x, n_iter=5, out="result/profile_full.txt"):
           f"{wall_ms:.1f} ms ({wall_ms / trials:.2f} ms/trial), device busy "
           f"{busy_ms:.1f} ms ({busy_ms / trials:.2f} ms/trial), device idle "
           f"share {1 - busy_ms / wall_ms:.3f}, host reads "
-          f"{state['reads'] / trials:.1f}/trial, CG iterations "
+          f"{reads / trials:.1f}/trial, CG iterations "
           f"{state['cgit'] / trials:.1f}/trial")
     rows = sorted((e for e in ka if str(e.device_type).endswith("CUDA")),
                   key=dev_us, reverse=True)[:15]

@@ -358,16 +358,16 @@ def test_pcg_collectives_per_iteration(thread_comm):
     system = s.system
     rhs = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (system.n_verts, 3)))
-    x_ref, it_ref, _ = tl.pcg_fused(system.ell.apply, rhs,
-                                    system.precond_diag, tol=1e-10,
-                                    max_iters=40, precond=system.mg.apply)
+    x_ref, it_ref = tl.pcg_fused(system.ell.apply, rhs,
+                                 system.precond_diag, tol=1e-10,
+                                 max_iters=40, precond=system.mg.apply)
     shards = [pg.shard_geometry_system(system, m) for m in _meshes(3)]
 
     def run(sh):
         from aa_admm_tpu_torch.solver.geometry import _full, _own
         comm = sh.shard.comm
         c0 = comm.count
-        x, it, _ = tl.pcg_fused(
+        x, it = tl.pcg_fused(
             lambda v: sh.ell.apply(_full(sh, v)), _own(sh, rhs),
             sh.precond_diag, tol=1e-10, max_iters=40,
             precond=lambda r: sh.mg.apply(r, comm.all_reduce),

@@ -182,12 +182,12 @@ def blocked_cg(geometry, bsr, diag_b, mg_b):
 
     def pcg_blocked(operator, rhs, diag, tol, max_iters, x0=None,
                     precond=None):
-        x_b, it, reads = pcg(
+        x_b, it = pcg(
             bsr.apply_blocked, bsr.to_blocked(rhs), diag_b, tol=tol,
             max_iters=max_iters,
             x0=None if x0 is None else bsr.to_blocked(x0),
             precond=mg_b.apply)
-        return bsr.from_blocked(x_b), it, reads
+        return bsr.from_blocked(x_b), it
 
     geometry.pcg_fused = pcg_blocked
     try:
